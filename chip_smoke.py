@@ -1,0 +1,603 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (src/repro_torch) on one NVIDIA GPU and check it.
+
+Run from the root of a checkout:   python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero without a result):
+
+  1. device   -- needs a CUDA device; prints the card's name and power limit
+                 (nvidia-smi), the torch and CUDA versions; TF32 off.
+  2. build    -- builds the hand-written kernels of src/repro_torch/csrc with
+                 nvcc into the git-ignored build/ directory.
+  3. kernels  -- each kernel against its plain PyTorch version on the card at
+                 the main path's shapes, and its median time over 50 launches
+                 (CUDA events) beside the plain version's, a PyTorch library
+                 call's where one computes the same function, and its bound.
+  4. main     -- the VHT prequential path at the full width of the widest
+                 dense configuration (benchmarks/vht_benchmarks.py fig89
+                 dense-1000, wok): every kernel must have launched, the tree
+                 must grow, and a re-run of the same stream with the plain
+                 versions on the card must give the same per-batch metrics
+                 and the same tree.  tree_route is also checked on the
+                 learned tree.
+  5. paths    -- dense-20 and dense-200 in the local, wok and wk(256)
+                 variants, and the MA/LS topology on the LocalEngine and the
+                 StreamEngine at dense-200, each against its plain re-run.
+  6. result   -- one JSON line of per-kernel numbers, then, as the last line,
+                 {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+B, M_ATTRS, N_NODES, BINS, C, DEPTH = 512, 1000, 255, 8, 2, 24
+MAIN_BATCHES = 200
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+# ---------------------------------------------------------------- helpers
+
+def call_ms(fn, n=50, warmup=5):
+    """Median of n CUDA-event timings of single calls of fn(), after
+    warmup calls.  The device idles while the host launches, so this is
+    the time of a call from the host's side, launch overhead included."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(fn, n=50, reps=7):
+    """Device time of one fn(): the median over reps of (events around n
+    back-to-back calls) / n.  A spin kernel (torch.cuda._sleep) holds the
+    stream first, long enough for the host to queue all n calls, so the
+    device runs them without waiting for the host."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * host_s * 2.0e9) + 1_000_000       # 2x the host time
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def timed(fn):
+    """{"ms": device ms, "call_ms": ms per call from the host}."""
+    return {"ms": device_ms(fn), "call_ms": call_ms(fn)}
+
+
+def max_abs_err(got, want):
+    return float((got.double() - want.double()).abs().max())
+
+
+def bound(moved, ops):
+    """(ms, "bytes" or "operations"): the least time the card needs for
+    `moved` bytes at its memory rate and `ops` float32 operations at its
+    peak rate, and which of the two sets it."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def require(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def random_trees(M, N, m, nb, seed):
+    """M valid trees filling node pools of N: random leaves split into two
+    fresh children until the pool is full."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sa = np.full((M, N), -1, np.int32)
+    sb = np.zeros((M, N), np.int32)
+    ch = np.zeros((M, N, 2), np.int32)
+    for t in range(M):
+        n_nodes, leaves = 1, [0]
+        for _ in range((N - 1) // 2):
+            node = leaves.pop(rng.randint(len(leaves)))
+            sa[t, node], sb[t, node] = rng.randint(m), rng.randint(nb)
+            ch[t, node] = (n_nodes, n_nodes + 1)
+            leaves += [n_nodes, n_nodes + 1]
+            n_nodes += 2
+    return sa, sb, ch
+
+
+def route_steps(sa, sb, ch, xbin, max_depth):
+    """Number of inner nodes each (member, instance) passes: the xbin reads
+    that routing needs."""
+    import torch
+    M, N = sa.shape
+    node = torch.zeros((M, xbin.shape[0]), dtype=torch.long, device=xbin.device)
+    steps = torch.zeros_like(node)
+    rows = torch.arange(M, device=xbin.device)[:, None]
+    cols = torch.arange(xbin.shape[0], device=xbin.device)[None]
+    for _ in range(max_depth):
+        attr = sa[rows, node].long()
+        inner = attr >= 0
+        v = xbin[cols, attr.clamp(min=0)]
+        nxt = ch[rows, node, (v > sb[rows, node]).long()].long()
+        node = torch.where(inner, nxt, node)
+        steps += inner.long()
+    return int(steps.sum())
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the VHT path through the plain PyTorch versions of the three
+    kernels, on the card, for a reference run."""
+    from repro_torch.kernels.split_gain.ref import split_gain_ref
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+    from repro_torch.kernels.vht_stats.ref import stats_update_ref
+    from repro_torch.ml import htree, vht
+
+    def route_plain(sa, sb, ch, xbin, *, max_depth):
+        if sa.dim() == 1:
+            return tree_route_ref(sa[None], sb[None], ch[None], xbin,
+                                  max_depth)[0]
+        return tree_route_ref(sa, sb, ch, xbin, max_depth)
+
+    saved = (htree.tree_route, htree.stats_update, htree.split_gain,
+             vht.stats_update)
+    htree.tree_route, htree.split_gain = route_plain, split_gain_ref
+    htree.stats_update = vht.stats_update = stats_update_ref
+    try:
+        yield
+    finally:
+        (htree.tree_route, htree.stats_update, htree.split_gain,
+         vht.stats_update) = saved
+
+
+class Recording:
+    """A learner that keeps every step's metrics."""
+
+    def __init__(self, learner):
+        self.learner = learner
+        self.metrics = []
+
+    def init(self, key=None):
+        return self.learner.init()
+
+    def step(self, state, x, y):
+        state, m = self.learner.step(state, x, y)
+        self.metrics.append(m)
+        return state, m
+
+
+def stacked(metrics, key):
+    import torch
+    return torch.stack([m[key] for m in metrics]).cpu()
+
+
+TREE_KEYS = ("split_attr", "split_bin", "children", "n_nodes")
+
+
+def same_tree(a, b):
+    import torch
+    return all(torch.equal(a[k], b[k]) for k in TREE_KEYS)
+
+
+# ----------------------------------------------------------------- phases
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for name, info in sorted(_build.BUILD_LOG.items()):
+        regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"  {name}: {info['seconds']:.2f} s cached={info['cached']} "
+            + " | ".join(regs))
+
+
+def phase_kernels(dev):
+    """Parity and timing of each kernel at the main path's shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.split_gain.ops import NEG, split_gain
+    from repro_torch.kernels.split_gain.ref import split_gain_ref
+    from repro_torch.kernels.tree_route.ops import tree_route
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+    from repro_torch.kernels.vht_stats.ops import stats_update
+    from repro_torch.kernels.vht_stats.ref import stats_update_ref
+
+    rng = np.random.RandomState(0)
+    out = {}
+
+    # tree_route: M = 1 and M = 5, exact
+    xbin = torch.from_numpy(rng.randint(0, BINS, (B, M_ATTRS)).astype(
+        np.int32)).to(dev)
+    for M in (1, 5):
+        sa, sb, ch = (torch.from_numpy(a).to(dev)
+                      for a in random_trees(M, N_NODES, M_ATTRS, BINS, M))
+        got = tree_route(sa, sb, ch, xbin, max_depth=DEPTH)
+        want = tree_route_ref(sa, sb, ch, xbin, DEPTH)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"tree_route M={M} differs")
+        err = max_abs_err(got, want)
+        log(f"tree_route M={M} B={B} N={N_NODES}: exact")
+        if M == 1:
+            steps = route_steps(sa, sb, ch, xbin, DEPTH)
+            moved = M * N_NODES * 16 + steps * 4 + M * B * 4
+            bound_ms, bound_by = bound(moved, steps)
+            kt = timed(lambda: tree_route(sa, sb, ch, xbin, max_depth=DEPTH))
+            pt = timed(lambda: tree_route_ref(sa, sb, ch, xbin, DEPTH))
+            out["tree_route"] = {
+                "ms": kt["ms"], "call_ms": kt["call_ms"],
+                "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
+                "library_ms": None, "bytes": moved, "ops": steps,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err}
+
+    # vht_stats: [255, 1000, 8, 2], B = 512; exact with 0/1 weights on
+    # integer counts, within 1e-5 with fractional weights (order of sums)
+    leaf = torch.from_numpy(rng.randint(0, N_NODES, B).astype(np.int32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, C, B).astype(np.int32)).to(dev)
+    counts = torch.from_numpy(rng.randint(0, 50, (N_NODES, M_ATTRS, BINS, C))
+                              .astype(np.float32)).to(dev)
+    w01 = torch.from_numpy((rng.uniform(size=B) < 0.8).astype(np.float32)).to(dev)
+    got = stats_update(counts.clone(), leaf, xbin, y, w01)
+    want = stats_update_ref(counts.clone(), leaf, xbin, y, w01)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "vht_stats (0/1 weights) differs")
+    frac = torch.from_numpy((rng.uniform(size=(N_NODES, M_ATTRS, BINS, C)) * 5)
+                            .astype(np.float32)).to(dev)
+    wf = torch.from_numpy(rng.uniform(size=B).astype(np.float32)).to(dev)
+    got = stats_update(frac.clone(), leaf, xbin, y, wf)
+    want = stats_update_ref(frac.clone(), leaf, xbin, y, wf)
+    err = max_abs_err(got, want)
+    require(err <= 1e-5, f"vht_stats (fractional) max abs err {err}")
+    log(f"vht_stats [{N_NODES},{M_ATTRS},{BINS},{C}] B={B}: exact (0/1), "
+        f"fractional max abs err {err:.3g}")
+    ones = torch.ones(B, dtype=torch.float32, device=dev)
+    jj = torch.arange(M_ATTRS, device=dev)
+    flat = (((leaf.long()[:, None] * M_ATTRS + jj) * BINS + xbin.long()) * C
+            + y.long()[:, None]).reshape(-1)
+    vals = ones[:, None].expand(B, M_ATTRS).reshape(-1).contiguous()
+    work = counts.clone()
+    cells = int(torch.unique(flat).numel())
+    moved = B * 12 + B * M_ATTRS * 4 + cells * 8
+    kt = timed(lambda: stats_update(work, leaf, xbin, y, ones))
+    pt = timed(lambda: stats_update_ref(work, leaf, xbin, y, ones))
+    lt = timed(lambda: work.view(-1).index_put_((flat,), vals,
+                                                accumulate=True))
+    bound_ms, bound_by = bound(moved, B * M_ATTRS)
+    out["vht_stats"] = {
+        "ms": kt["ms"], "call_ms": kt["call_ms"],
+        "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
+        "library_ms": lt["ms"], "library_call_ms": lt["call_ms"],
+        "bytes": moved, "ops": B * M_ATTRS,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+    # split_gain: the gathered tile [16, ...] and the full fallback [255, ...]
+    for rows in (16, N_NODES):
+        s = torch.from_numpy(rng.randint(0, 30, (rows, M_ATTRS, BINS, C))
+                             .astype(np.float32)).to(dev)
+        s *= torch.from_numpy((rng.uniform(size=s.shape) < 0.5)
+                              .astype(np.float32)).to(dev)
+        got, want = split_gain(s), split_gain_ref(s)
+        require(torch.equal(got == NEG, want == NEG),
+                f"split_gain [{rows}] NEG mask differs")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        err = max_abs_err(got, want)
+        moved = s.numel() * 4 + got.numel() * 4
+        per_entropy = 6 * C + 2
+        ops = rows * M_ATTRS * (BINS * C + per_entropy + BINS * (
+            2 * C + 2 * per_entropy + 7))
+        bound_ms, bound_by = bound(moved, ops)
+        kt, pt = timed(lambda: split_gain(s)), timed(lambda: split_gain_ref(s))
+        entry = {
+            "ms": kt["ms"], "call_ms": kt["call_ms"],
+            "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
+            "library_ms": None, "bytes": moved, "ops": ops,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+        log(f"split_gain [{rows},{M_ATTRS},{BINS},{C}]: max abs err {err:.3g}"
+            " (atol=rtol=1e-4)")
+        out["split_gain" if rows == 16 else "split_gain_full"] = entry
+    for name, e in out.items():
+        log(f"{name}: device ms per launch: kernel {e['ms']:.5f}, plain "
+            f"{e['plain_ms']:.5f}, library {e['library_ms']}, bound "
+            f"{e['bound_ms']:.6f} ({e['bound_by']}), kernel/bound "
+            f"{e['ms'] / e['bound_ms']:.1f}; ms per call from the "
+            f"host: kernel {e['call_ms']:.5f}, plain {e['plain_call_ms']:.5f},"
+            f" library {e.get('library_call_ms')}")
+    return out
+
+
+def run_pair(make_learner, batches, what):
+    """The learner over batches with the kernels, then with the plain
+    versions; both must give the same per-batch metrics and tree.  Returns
+    (kernel-run result, launches, µs/batch)."""
+    import torch
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.kernels import launches, reset_launches
+
+    rec = Recording(make_learner())
+    torch.cuda.synchronize()
+    reset_launches()
+    res = PrequentialEvaluation(rec, batches).run()
+    count = launches()
+    torch.cuda.synchronize()
+    plain = Recording(make_learner())
+    with plain_kernels():
+        reset_launches()
+        ref = PrequentialEvaluation(plain, batches).run()
+        require(sum(launches().values()) == 0, "plain run launched a kernel")
+    for key in ("correct", "dropped", "n_nodes"):
+        require(torch.equal(stacked(rec.metrics, key),
+                            stacked(plain.metrics, key)),
+                f"{what}: per-batch {key} differs from the plain run")
+    require(same_tree(res.extra["state"], ref.extra["state"]),
+            f"{what}: final tree differs from the plain run")
+    require(torch.equal(res.extra["state"]["stats"], ref.extra["state"]["stats"]),
+            f"{what}: final stats differ from the plain run")
+    n_nodes = int(res.extra["state"]["n_nodes"])
+    require(n_nodes > 1, f"{what}: the tree did not grow")
+    require(0.0 <= res.metric <= 1.0 and math.isfinite(res.metric),
+            f"{what}: accuracy {res.metric}")
+    us = 1e6 * batches[0][1].shape[0] / res.throughput
+    log(f"{what}: acc {res.metric:.4f} nodes {n_nodes} "
+        f"dropped {float(stacked(rec.metrics, 'dropped').sum()):.0f} "
+        f"{us:.1f} us/batch {res.throughput:.0f} inst/s launches {count}; "
+        f"same as plain run")
+    return res, count, us
+
+
+def tree_config(m, **kw):
+    """benchmarks/vht_benchmarks.py::_tc."""
+    from repro_torch.ml.htree import TreeConfig
+    return TreeConfig(n_attrs=m, n_bins=8, n_classes=2, max_nodes=255,
+                      n_min=200, **kw)
+
+
+def stream(m, n_batches, dev):
+    from repro_torch.data.generators import RandomTreeGenerator
+    from repro_torch.data.pipeline import StreamPipeline
+    gen = RandomTreeGenerator(n_cat=m // 2, n_num=m - m // 2, depth=8,
+                              device=dev)
+    return list(StreamPipeline(gen, batch=B, n_batches=n_batches, n_bins=BINS,
+                               device=dev))
+
+
+def count_syncs(learner, state, batches):
+    """Device-to-host syncs per step, counted by torch's sync debug mode."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for x, y in batches:
+            state, _ = learner.step(state, x, y)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    return len(syncs) / len(batches)
+
+
+def profile_steps(learner, state, batches):
+    """Device busy share and device time by kernel over the steps, from a
+    torch.profiler trace (the profiler's own cost is in the wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches:
+            state, _ = learner.step(state, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    require(busy_us > 0, "profiler trace shows no device time")
+    n = len(batches)
+    log(f"profile of {n} steps: wall {wall_us / n:.1f} us/step, device busy "
+        f"{busy_us / n:.1f} us/step ({100 * busy_us / wall_us:.1f} %), "
+        f"{sum(r[1] for r in rows) / n:.1f} device ops/step")
+    for us, count, key in rows[:10]:
+        log(f"  {us / n:9.2f} us/step  {count / n:5.2f}/step  {key[:90]}")
+    return {"wall_us_per_step": wall_us / n, "busy_us_per_step": busy_us / n,
+            "busy_share": busy_us / wall_us,
+            "device_ops_per_step": sum(r[1] for r in rows) / n}
+
+
+def phase_main(dev, smi):
+    import torch
+    from repro_torch.kernels.tree_route.ops import tree_route
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+    from repro_torch.core.pytree import tree_clone
+    from repro_torch.ml.vht import VHT, VHTConfig
+
+    batches = stream(M_ATTRS, MAIN_BATCHES, dev)
+    cfg = VHTConfig(tree_config(M_ATTRS, split_delay=4))
+    res, count, us = run_pair(lambda: VHT(cfg, device=dev), batches,
+                              "main dense-1000 wok")
+    for name, n in count.items():
+        require(n > 0, f"main path: {name} was not launched")
+    log(f"main path dense-1000 wok B={B} x {MAIN_BATCHES}: {us:.1f} us/batch, "
+        f"{res.throughput:.0f} instances/s on {smi}")
+
+    # tree_route on the learned tree, exact
+    st = res.extra["state"]
+    xb = batches[-1][0]
+    got = tree_route(st["split_attr"], st["split_bin"], st["children"], xb,
+                     max_depth=DEPTH)
+    want = tree_route_ref(st["split_attr"][None], st["split_bin"][None],
+                          st["children"][None], xb, DEPTH)[0]
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "tree_route differs on the learned tree")
+    log(f"tree_route on the learned tree ({int(st['n_nodes'])} nodes): exact")
+
+    syncs = count_syncs(VHT(cfg, device=dev), tree_clone(st), batches[:20])
+    log(f"main path: {syncs:.2f} device-to-host syncs per step "
+        "(VHT.step alone, torch sync debug mode)")
+    prof = profile_steps(VHT(cfg, device=dev), tree_clone(st), batches[:50])
+    return {"us_per_batch": us, "inst_per_s": res.throughput,
+            "acc": res.metric, "n_nodes": int(st["n_nodes"]),
+            "launches": count, "syncs_per_step": syncs, "profile": prof}
+
+
+def phase_paths(dev):
+    import torch
+    from repro_torch.core.engines import LocalEngine, StreamEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.ml.vht import VHT, VHTConfig, build_vht_topology
+
+    n_batches = 100
+    variants = {"local": {}, "wok": {"split_delay": 4},
+                "wk256": {"split_delay": 4, "buffer_size": 256}}
+    out = {}
+    for m in (20, 200):
+        batches = stream(m, n_batches, dev)
+        for name, kw in variants.items():
+            cfg = VHTConfig(tree_config(m, **kw))
+            _, count, us = run_pair(lambda: VHT(cfg, device=dev), batches,
+                                    f"dense-{m} {name}")
+            out[f"dense-{m} {name}"] = {"us_per_batch": us, "launches": count}
+
+    batches = stream(200, n_batches, dev)
+    payloads = [{"x": x, "y": y} for x, y in batches]
+    cfg = VHTConfig(tree_config(200))
+    for engine in (LocalEngine(), StreamEngine()):
+        ename = type(engine).__name__
+        topo = build_vht_topology(cfg, device=dev)
+        init = engine.init(topo)
+        engine.run_stream(topo, init, payloads[:2])            # warm up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        final, outs = engine.run_stream(topo, init, payloads)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        count = launches()
+        with plain_kernels():
+            ref_final, ref_outs = engine.run_stream(topo, init, payloads)
+        states = final if ename == "LocalEngine" else final["states"]
+        ref_states = ref_final if ename == "LocalEngine" else ref_final["states"]
+        pred = stack_outputs(outs)["prediction"]["pred"]
+        ref_pred = stack_outputs(ref_outs)["prediction"]["pred"]
+        require(torch.equal(pred, ref_pred),
+                f"topology {ename}: predictions differ from the plain run")
+        require(same_tree(states["model-aggregator"],
+                          ref_states["model-aggregator"]),
+                f"topology {ename}: tree differs from the plain run")
+        require(torch.equal(states["local-statistic"]["stats"],
+                            ref_states["local-statistic"]["stats"]),
+                f"topology {ename}: stats differ from the plain run")
+        n_nodes = int(states["model-aggregator"]["n_nodes"])
+        require(n_nodes > 1, f"topology {ename}: the tree did not grow")
+        require(all(n > 0 for n in count.values()),
+                f"topology {ename}: launches {count}")
+        acc = float((pred == torch.stack([y for _, y in batches])).float()
+                    .mean())
+        us = dt / n_batches * 1e6
+        log(f"topology dense-200 {ename}: acc {acc:.4f} nodes {n_nodes} "
+            f"{us:.1f} us/batch launches {count}; same as plain run")
+        out[f"topology dense-200 {ename}"] = {"us_per_batch": us,
+                                              "launches": count}
+    return out
+
+
+def main():
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        sys.exit("chip_smoke.py: src/repro_torch not found; run it from the "
+                 "root of a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: no CUDA device; the port's kernels need one")
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    kern = phase_kernels(dev)
+    main_path = phase_main(dev, smi)
+    paths = phase_paths(dev)
+
+    sources = {"tree_route": "src/repro_torch/csrc/tree_route.cu",
+               "vht_stats": "src/repro_torch/csrc/vht_stats.cu",
+               "split_gain": "src/repro_torch/csrc/split_gain.cu"}
+    replaces = {"tree_route": "src/repro/kernels/tree_route/kernel.py:68",
+                "vht_stats": "src/repro/kernels/vht_stats/kernel.py:69",
+                "split_gain": "src/repro/kernels/split_gain/kernel.py:58"}
+    rows = []
+    for name in ("tree_route", "vht_stats", "split_gain"):
+        e = kern[name]
+        rows.append({"name": name, "route": "cuda", "source": sources[name],
+                     "replaces": replaces[name],
+                     "launches": main_path["launches"][name],
+                     "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                     "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+    log(f"split_gain full fallback [{N_NODES},{M_ATTRS},{BINS},{C}]: "
+        f"{json.dumps(kern['split_gain_full'])}")
+    log(f"paths: {json.dumps(paths)}")
+    log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+    log(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

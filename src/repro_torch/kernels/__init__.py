@@ -1,0 +1,24 @@
+"""Hand-written Hopper kernels of the port, one package each: ``ops.py``
+(the wrapper), ``ref.py`` (the plain PyTorch version) and the CUDA source
+in ``src/repro_torch/csrc/<name>.cu``.
+
+A wrapper launches its kernel for CUDA tensors and runs the plain version
+for CPU tensors.  Each counts its launches in ``<wrapper>.launches``, so a
+run can show that it went through the kernels.
+"""
+
+from repro_torch.kernels.split_gain.ops import split_gain
+from repro_torch.kernels.tree_route.ops import tree_route
+from repro_torch.kernels.vht_stats.ops import stats_update
+
+KERNELS = {"tree_route": tree_route, "vht_stats": stats_update,
+           "split_gain": split_gain}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,58 @@
+"""Sort one shared [B, m] micro-batch to a leaf in each of M trees (the
+model aggregator's step, paper Alg. 1 line 1; M > 1 for ensembles).
+
+On a CUDA tensor it launches the hand-written kernel of
+``csrc/tree_route.cu`` (one thread per (member, instance), the member's
+node tables in shared memory); on a CPU tensor it runs the plain version of
+``ref.py``.  Routing is integer-only, so both give the same leaf ids.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.tree_route.ref import tree_route_ref
+
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def tree_route(split_attr, split_bin, children, xbin, *, max_depth: int):
+    """split_attr/split_bin: [M, N] (or [N] for one tree) i32;
+    children: [M, N, 2] (or [N, 2]) i32; xbin: [B, m] i32.
+    Returns leaf ids [M, B] i32 ([B] when the tables were rank-1)."""
+    single = split_attr.dim() == 1
+    if single:
+        split_attr, split_bin, children = (
+            split_attr[None], split_bin[None], children[None])
+    if xbin.device.type == "cpu":
+        out = tree_route_ref(split_attr, split_bin, children, xbin, max_depth)
+    else:
+        out = _launch(split_attr, split_bin, children, xbin, max_depth)
+    return out[0] if single else out
+
+
+def _launch(split_attr, split_bin, children, xbin, max_depth):
+    M, N = split_attr.shape
+    B, m = xbin.shape
+    dev = xbin.device
+    _build.check_tensor(xbin, torch.int32, (B, m), "xbin")
+    _build.check_tensor(split_attr, torch.int32, (M, N), "split_attr", dev)
+    _build.check_tensor(split_bin, torch.int32, (M, N), "split_bin", dev)
+    _build.check_tensor(children, torch.int32, (M, N, 2), "children", dev)
+    leaf = torch.empty((M, B), dtype=torch.int32, device=dev)
+    if leaf.numel() == 0:
+        return leaf
+    fn = _build.function("tree_route", "tree_route_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(split_attr.data_ptr(), split_bin.data_ptr(),
+                 children.data_ptr(), xbin.data_ptr(), leaf.data_ptr(),
+                 M, N, B, m, max_depth, _build.stream_of(xbin))
+    _build.check(err, "tree_route")
+    tree_route.launches += 1
+    return leaf
+
+
+tree_route.launches = 0

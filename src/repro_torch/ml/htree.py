@@ -1,0 +1,361 @@
+"""Tensorized streaming Hoeffding tree (VFDT), capacity-bounded, in PyTorch.
+
+Port of ``repro/ml/htree.py``.  The tree is a set of dense tensors: a node
+pool of ``max_nodes``, binary threshold splits over *binned* attribute
+values, and the sufficient statistics n_ijk as one tensor
+
+    stats[node, attr, bin, class]
+
+whose attribute axis is the paper's vertical-parallelism axis.  State is a
+plain dict of tensors with the JAX package's keys and dtypes (f32, i32,
+bool), so the two can be compared leaf by leaf.
+
+Three kernels carry the module: ``tree_route`` (``route``/``predict``),
+``vht_stats`` (``update_stats``) and ``split_gain`` (``split_gains``).  On
+a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
+runs its plain version.
+
+Where the JAX package gates work with ``lax.cond`` (``decide_splits``,
+``gated_check``, ``apply_splits``), the port branches in Python on a value
+read from the device, so each gate costs one device-to-host sync.  The
+results are those of the ungated code either way.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.split_gain.ops import NEG, split_gain
+from repro_torch.kernels.tree_route.ops import tree_route
+from repro_torch.kernels.vht_stats.ops import stats_update
+
+f32 = torch.float32
+i32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeConfig:
+    n_attrs: int
+    n_bins: int = 8
+    n_classes: int = 2
+    max_nodes: int = 255          # odd: root + 2k children
+    max_depth: int = 24
+    n_min: int = 200              # grace period between split attempts
+    delta: float = 1e-7           # Hoeffding confidence
+    tau: float = 0.05             # tie-break threshold
+    split_delay: int = 0          # D engine-steps between decide & apply
+    buffer_size: int = 0          # wk(z); 0 = wok when delay>0, local if D=0
+    stats_impl: str = "auto"      # the kernel on CUDA, its plain version on CPU
+    route_impl: str = "auto"      # the kernel on CUDA, its plain version on CPU
+    gate_splits: bool = True      # gate split checks on the grace period
+    check_tile: int = 16          # gated check: max due leaves examined via
+                                  # gather before falling back to all nodes
+
+    def __post_init__(self):
+        for name in ("stats_impl", "route_impl"):
+            if getattr(self, name) != "auto":
+                raise ValueError(
+                    f"{name}={getattr(self, name)!r}: the port has one "
+                    "implementation, picked by the tensors' device ('auto')")
+
+    @property
+    def range_r(self) -> float:
+        return math.log2(max(self.n_classes, 2))
+
+
+def init_tree(tc: TreeConfig, device=None):
+    dev = resolve_device(device)
+    N = tc.max_nodes
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    state = {
+        "split_attr": torch.full((N,), -1, dtype=i32, device=dev),
+        "split_bin": z((N,), i32),
+        "children": z((N, 2), i32),
+        "stats": z((N, tc.n_attrs, tc.n_bins, tc.n_classes), f32),
+        "class_counts": z((N, tc.n_classes), f32),
+        "since_attempt": z((N,), f32),
+        "n_total": z((N,), f32),
+        "depth": z((N,), i32),
+        "n_nodes": torch.ones((), dtype=i32, device=dev),
+        # pending split feedback (wok / wk(z) staleness emulation)
+        "pending": z((N,), torch.bool),
+        "pending_attr": z((N,), i32),
+        "pending_bin": z((N,), i32),
+        "pending_timer": z((N,), i32),
+        "n_splits": z((), i32),
+    }
+    if tc.buffer_size:
+        state["buf_x"] = z((tc.buffer_size, tc.n_attrs), i32)
+        state["buf_y"] = z((tc.buffer_size,), i32)
+        state["buf_valid"] = z((tc.buffer_size,), torch.bool)
+        state["buf_n"] = z((), i32)
+    return state
+
+
+def top_k(x, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    indices (i32), and among equal values the lower index first.
+    ``torch.topk`` promises no order among ties, so this sorts stably."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(i32)
+
+
+# --------------------------------------------------------------------------
+# routing (model aggregator: sort instance to leaf -- Alg. 1 line 1)
+# --------------------------------------------------------------------------
+
+def route(state, xbin, tc: TreeConfig):
+    """xbin: [B, m] i32 binned attributes -> leaf ids [B] i32, through the
+    ``tree_route`` kernel with one tree."""
+    return tree_route(state["split_attr"], state["split_bin"],
+                      state["children"], xbin, max_depth=tc.max_depth)
+
+
+def route_members(trees, xbin, tc: TreeConfig):
+    """Route ONE shared micro-batch through M stacked member trees in a
+    single ``tree_route`` launch -> leaf ids [M, B]."""
+    return tree_route(trees["split_attr"], trees["split_bin"],
+                      trees["children"], xbin, max_depth=tc.max_depth)
+
+
+def predict(state, xbin, tc: TreeConfig):
+    leaf = route(state, xbin, tc)
+    counts = state["class_counts"][leaf.long()]
+    return torch.argmax(counts, dim=-1).to(i32), leaf
+
+
+# --------------------------------------------------------------------------
+# statistics update (LS processors: Alg. 2)
+# --------------------------------------------------------------------------
+
+def update_stats(state, leaf, xbin, y, w, tc: TreeConfig):
+    """Accumulate n_ijk for a micro-batch.  w: [B] f32 weights (0 = dropped).
+
+    ``state["stats"]`` is updated IN PLACE by the ``vht_stats`` kernel
+    (the JAX package returns a new array); the other counters are new
+    tensors in the returned dict.
+    """
+    lf = leaf.long()
+    clsoh = F.one_hot(y.long(), tc.n_classes).to(f32) * w[:, None]
+    state = dict(state)
+    state["stats"] = stats_update(state["stats"], leaf, xbin, y, w)
+    state["class_counts"] = state["class_counts"].index_add(0, lf, clsoh)
+    state["since_attempt"] = state["since_attempt"].index_add(0, lf, w)
+    state["n_total"] = state["n_total"].index_add(0, lf, w)
+    return state
+
+
+# --------------------------------------------------------------------------
+# split criterion (LS: Alg. 3 + MA: Alg. 4)
+# --------------------------------------------------------------------------
+
+def split_gains(stats, tc: TreeConfig):
+    """Information gain for every (node, attr, threshold-bin) through the
+    ``split_gain`` kernel: stats [N, m, bins, C] -> gains [N, m, bins]."""
+    return split_gain(stats)
+
+
+def hoeffding_bound(n, tc: TreeConfig):
+    # The constant is a Python double rounded once to f32, and the division
+    # by 2 max(n, 1) is in f32, in the JAX package's order: a bound that
+    # differs in its last bit can flip a split.
+    c = tc.range_r ** 2 * math.log(1.0 / tc.delta)
+    return torch.sqrt(torch.full_like(n, c) / (2.0 * torch.clamp(n, min=1.0)))
+
+
+def _decide_splits_impl(state, tc: TreeConfig):
+    gains = split_gains(state["stats"], tc)             # [N, m, bins]
+    # paper (Alg. 3/4): compare the best TWO ATTRIBUTES -- adjacent bins of
+    # one attribute have near-identical gain and would make DeltaG ~ 0
+    per_attr = gains.amax(-1)                           # [N, m]
+    best_bin_per_attr = gains.argmax(-1)                # [N, m], first max
+    top2, idx2 = top_k(per_attr, 2)
+    ga, gb = top2[:, 0], top2[:, 1]
+    best_attr = idx2[:, 0]
+    best_bin = torch.gather(best_bin_per_attr, 1,
+                            best_attr.long()[:, None])[:, 0].to(i32)
+    eps = hoeffding_bound(state["n_total"], tc)
+    is_leaf = state["split_attr"] < 0
+    pure = (state["class_counts"] > 0).sum(-1) <= 1
+    attempted = state["since_attempt"] >= tc.n_min
+    ok = (ga > 0) & ((ga - gb > eps) | (eps < tc.tau))
+    depth_ok = state["depth"] < tc.max_depth - 1
+    should = is_leaf & attempted & (~pure) & ok & depth_ok & (~state["pending"])
+    return should, best_attr, best_bin
+
+
+_DECIDE_KEYS = ("stats", "n_total", "split_attr", "class_counts",
+                "since_attempt", "depth", "pending")
+
+
+def due_topk(due, score, k):
+    """Indices of up to k due rows, highest score first.  Non-due rows
+    score -1 so they rank last; when fewer than k rows are due the filler
+    rows MUST be masked out again by the caller's attempted/due test."""
+    return top_k(torch.where(due, score, -1.0), k)[1]
+
+
+def child_counts_from_stats(stats, best_attr, best_bin):
+    """Left/right child class distributions for the chosen (attr, bin)
+    thresholds, from the cumsum over the bin axis of the chosen attribute.
+    stats: [R, m, bins, C]; best_attr/best_bin: [R] -> ([R, C], [R, C])."""
+    rows = torch.arange(stats.shape[0], device=stats.device)
+    cum = torch.cumsum(stats[rows, best_attr.long().clamp(min=0)], dim=1)
+    left = cum[rows, best_bin.long().clamp(min=0)]
+    right = cum[:, -1] - left
+    return left, right
+
+
+def gather_decide_tile(flat_state, due, k, tc: TreeConfig,
+                       with_children=False):
+    """Gather up to k due rows of a node pool (top-k on the grace counter)
+    and run the split decision on just that tile.  Returns (idx, should_k,
+    attr_k, bin_k), plus the gathered rows' child class distributions when
+    ``with_children``.  Filler rows (fewer than k due) fail the attempted
+    test, so their should_k is always False."""
+    idx = due_topk(due, flat_state["since_attempt"], k)
+    sub = {key: flat_state[key][idx.long()] for key in _DECIDE_KEYS}
+    s_k, a_k, b_k = _decide_splits_impl(sub, tc)
+    if not with_children:
+        return idx, s_k, a_k, b_k
+    left_k, right_k = child_counts_from_stats(sub["stats"], a_k, b_k)
+    return idx, s_k, a_k, b_k, left_k, right_k
+
+
+def gated_check(n_due, k, gathered, full, idle, operand):
+    """The exact split-check gate shared by decide_splits and the LS
+    processor: skip entirely when nothing is due, reduce a gathered row
+    tile when the due set fits k, fall back to the full reduction
+    otherwise.  Reading ``n_due`` syncs with the device."""
+    n = int(n_due)
+    if n <= 0:
+        return idle(operand)
+    return gathered(operand) if n <= k else full(operand)
+
+
+def scatter_rows(n, idx, values):
+    """A length-n tensor of zeros with ``values`` written at ``idx``."""
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    out[idx.long()] = values
+    return out
+
+
+def decide_splits(state, tc: TreeConfig):
+    """MA Receive(local_result): top-2 across attributes, Hoeffding test.
+
+    Returns (should_split[N], best_attr[N], best_bin[N]).  With
+    tc.gate_splits the gain reduction is gated on the grace period,
+    exactly:
+
+      * no leaf due            -> skip entirely; all-False is exact because
+                                  only attempted leaves can split
+      * <= check_tile leaves due -> gather just those rows (top-k on the
+                                  grace counter) and reduce [K, m, bins, C]
+                                  instead of [N, m, bins, C]
+      * more due than the tile -> fall back to the full reduction
+    """
+    if not tc.gate_splits:
+        return _decide_splits_impl(state, tc)
+    N = tc.max_nodes
+    K = min(tc.check_tile, N)
+    due = (state["split_attr"] < 0) & (state["since_attempt"] >= tc.n_min)
+    dev = due.device
+
+    def gathered(st):
+        idx, s_k, a_k, b_k = gather_decide_tile(st, due, K, tc)
+        return (scatter_rows(N, idx, s_k), scatter_rows(N, idx, a_k),
+                scatter_rows(N, idx, b_k))
+
+    def idle(st):
+        return (torch.zeros(N, dtype=torch.bool, device=dev),
+                torch.zeros(N, dtype=i32, device=dev),
+                torch.zeros(N, dtype=i32, device=dev))
+
+    return gated_check(due.sum(), K, gathered,
+                       lambda s: _decide_splits_impl(s, tc), idle, state)
+
+
+def apply_splits(state, split_mask, best_attr, best_bin, tc: TreeConfig,
+                 child_counts=None):
+    """Replace chosen leaves by split nodes, allocate 2 children each
+    (MA Alg. 4 lines 6-10; the 'drop' event = children stats start at 0).
+
+    `child_counts=(left[N, C], right[N, C])` supplies the child class
+    distributions directly (the MA processor receives them in the
+    local-result event and holds no statistics tensor); otherwise they are
+    derived from state["stats"].  With tc.gate_splits the whole rewiring is
+    skipped on steps where no leaf splits, the common case in steady state
+    (one device-to-host sync to find out)."""
+    if tc.gate_splits and not bool(split_mask.any()):
+        return state, torch.zeros(tc.max_nodes, dtype=torch.bool,
+                                  device=split_mask.device)
+    return _apply_splits_impl(state, split_mask, best_attr, best_bin, tc,
+                              child_counts)
+
+
+def _apply_splits_impl(state, split_mask, best_attr, best_bin, tc: TreeConfig,
+                       child_counts=None):
+    N = tc.max_nodes
+    rank = torch.cumsum(split_mask.to(i32), 0, dtype=i32) - 1    # [N]
+    base = state["n_nodes"]
+    room = (base + 2 * (rank + 1)) <= N
+    do = split_mask & room
+    lchild = base + 2 * rank
+    rchild = base + 2 * rank + 1
+    n_splits = do.sum(dtype=i32)
+
+    state = dict(state)
+    state["split_attr"] = torch.where(do, best_attr, state["split_attr"])
+    state["split_bin"] = torch.where(do, best_bin, state["split_bin"])
+    state["children"] = torch.where(do[:, None],
+                                    torch.stack([lchild, rchild], -1),
+                                    state["children"])
+
+    # initialize children class counts from the split distribution
+    if child_counts is not None:
+        left_cnt, right_cnt = child_counts
+    else:
+        left_cnt, right_cnt = child_counts_from_stats(state["stats"],
+                                                      best_attr, best_bin)
+
+    # scratch-row scatter: rows not splitting all write to a throwaway row
+    # N, which is dropped (many writes land there in one call)
+    l_idx = torch.where(do, lchild.clamp(0, N - 1), N).long()
+    r_idx = torch.where(do, rchild.clamp(0, N - 1), N).long()
+
+    def set_rows(arr, idx, val):
+        padded = torch.cat([arr, torch.zeros_like(arr[:1])], 0)
+        padded[idx] = val.to(arr.dtype)
+        return padded[:N]
+
+    cc = set_rows(state["class_counts"], l_idx, left_cnt)
+    state["class_counts"] = set_rows(cc, r_idx, right_cnt)
+    child_depth = state["depth"] + 1
+    dep = set_rows(state["depth"], l_idx, child_depth)
+    state["depth"] = set_rows(dep, r_idx, child_depth)
+    # release the split leaf's statistics (drop content event), in place as
+    # update_stats does; the MA processor holds no statistics tensor -- its
+    # LS peers drop theirs on the broadcast 'drop' event instead
+    if "stats" in state:
+        state["stats"] = state["stats"].masked_fill_(do[:, None, None, None],
+                                                     0.0)
+    state["since_attempt"] = torch.where(do, 0.0, state["since_attempt"])
+    state["n_nodes"] = base + 2 * n_splits
+    state["n_splits"] = state["n_splits"] + n_splits
+    return state, do
+
+
+__all__ = ["NEG", "TreeConfig", "apply_splits", "child_counts_from_stats",
+           "decide_splits", "due_topk", "gated_check", "gather_decide_tile",
+           "hoeffding_bound", "init_tree", "predict", "route",
+           "route_members", "scatter_rows", "split_gains", "top_k",
+           "update_stats"]

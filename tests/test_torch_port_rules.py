@@ -1,0 +1,133 @@
+"""Rules the port keeps: it imports nothing of JAX or of ``repro``, it runs
+on the CUDA card unless asked for the CPU, and its kernel wrappers take
+the plain path only for CPU tensors, with no fallback."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import KERNELS, launches, reset_launches
+from repro_torch.kernels.split_gain.ref import split_gain_ref
+from repro_torch.kernels.tree_route.ref import tree_route_ref
+from repro_torch.kernels.vht_stats.ref import stats_update_ref
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10 and files[-1].exists()
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_imports_no_jax_and_no_repro(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """Every module of the port, imported in a fresh interpreter, pulls in
+    no ``jax`` and no ``repro`` module."""
+    mods = sorted({".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+                   .removesuffix(".__init__")
+                   for p in PORT.rglob("*.py")})
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_fallback_handlers_in_wrappers_or_smoke():
+    """No wrapper and no phase of chip_smoke.py catches a failure."""
+    paths = [PORT / "kernels" / "_build.py", ROOT / "chip_smoke.py",
+             *sorted((PORT / "kernels").glob("*/ops.py"))]
+    for path in paths:
+        tree = ast.parse(path.read_text())
+        handlers = [n.lineno for n in ast.walk(tree)
+                    if isinstance(n, ast.ExceptHandler)]
+        assert not handlers, f"{path.name} catches at lines {handlers}"
+
+
+def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
+    from repro_torch.data.generators import RandomTreeGenerator
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import VHT, VHTConfig, build_vht_topology
+    from repro_torch.core.engines import LocalEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = VHTConfig(TreeConfig(n_attrs=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VHT(cfg).init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalEngine().init(build_vht_topology(cfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RandomTreeGenerator(n_cat=2, n_num=2)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert VHT(cfg, device="cpu").init()["stats"].device.type == "cpu"
+
+
+def _cpu_inputs():
+    g = torch.Generator().manual_seed(0)
+    stats = torch.randint(0, 5, (8, 6, 4, 2), generator=g).float()
+    leaf = torch.randint(0, 8, (16,), generator=g, dtype=torch.int32)
+    xbin = torch.randint(0, 4, (16, 6), generator=g, dtype=torch.int32)
+    y = torch.randint(0, 2, (16,), generator=g, dtype=torch.int32)
+    w = torch.ones(16)
+    sa = torch.tensor([0, -1, -1], dtype=torch.int32)
+    sb = torch.tensor([1, 0, 0], dtype=torch.int32)
+    ch = torch.tensor([[1, 2], [0, 0], [0, 0]], dtype=torch.int32)
+    return stats, leaf, xbin, y, w, sa, sb, ch
+
+
+def test_wrappers_take_the_plain_path_on_cpu_without_counting():
+    stats, leaf, xbin, y, w, sa, sb, ch = _cpu_inputs()
+    reset_launches()
+    got = KERNELS["vht_stats"](stats.clone(), leaf, xbin, y, w)
+    assert torch.equal(got, stats_update_ref(stats.clone(), leaf, xbin, y, w))
+    assert torch.equal(KERNELS["split_gain"](stats), split_gain_ref(stats))
+    assert torch.equal(KERNELS["tree_route"](sa, sb, ch, xbin, max_depth=4),
+                       tree_route_ref(sa[None], sb[None], ch[None], xbin, 4)[0])
+    assert launches() == {"tree_route": 0, "vht_stats": 0, "split_gain": 0}
+
+
+def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
+    """A tensor that is not on the CPU goes to the kernel or raises; it is
+    never run through the plain version."""
+    stats, leaf, xbin, y, w, sa, sb, ch = [t.to("meta")
+                                           for t in _cpu_inputs()]
+    reset_launches()
+    with pytest.raises(ValueError):
+        KERNELS["vht_stats"](stats, leaf, xbin, y, w)
+    with pytest.raises(ValueError):
+        KERNELS["split_gain"](stats)
+    with pytest.raises(ValueError):
+        KERNELS["tree_route"](sa, sb, ch, xbin, max_depth=4)
+    assert launches() == {"tree_route": 0, "vht_stats": 0, "split_gain": 0}
+
