@@ -23,12 +23,25 @@ Phases (any failure raises, and the script exits non-zero without a result):
   5. paths    -- dense-20 and dense-200 in the local, wok and wk(256)
                  variants, and the MA/LS topology on the LocalEngine and the
                  StreamEngine at dense-200, each against its plain re-run.
-  6. result   -- one JSON line of per-kernel numbers, then, as the last line,
+  6. rules    -- AMRules regression (paper section 7) at the repo's widest
+                 setup (benchmarks/amrules_benchmarks.py fig12: R = 64 rules,
+                 8 bins, n_min = 200, B = 512, 80 batches): MAMR, VAMR and
+                 HAMR-2 on the waveform-40 and electricity-12 streams.  The
+                 main path is VAMR on waveform-40.  Each run must launch
+                 rule_stats for the moment statistics and, counted apart as
+                 segment_sum, for the float reductions, create rules, give
+                 the same per-batch abs_err, sq_err and n_rules and the same
+                 final state, leaf for leaf, as its re-run with the plain
+                 versions on the card, and the same state, bit for bit, as
+                 a second run with the kernel.  The main path's rule_stats
+                 time per step is split between the two uses.
+  7. result   -- one JSON line of per-kernel numbers, then, as the last line,
                  {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -44,6 +57,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 B, M_ATTRS, N_NODES, BINS, C, DEPTH = 512, 1000, 255, 8, 2, 24
 MAIN_BATCHES = 200
+# AMRules: RulesConfig(n_attrs=m, n_bins=8, max_rules=64, n_min=200), the
+# statistics extended by the default rule's row: [65, 40, 8, 3] at m = 40
+RULES, RULES_BATCHES, MOMENTS = 64, 80, 3
+VHT_KERNELS = ("tree_route", "vht_stats", "split_gain")
 
 
 def log(*args):
@@ -101,9 +118,9 @@ def device_ms(fn, n=50, reps=7):
     return statistics.median(times)
 
 
-def timed(fn):
+def timed(fn, n=50):
     """{"ms": device ms, "call_ms": ms per call from the host}."""
-    return {"ms": device_ms(fn), "call_ms": call_ms(fn)}
+    return {"ms": device_ms(fn, n=n), "call_ms": call_ms(fn, n=n)}
 
 
 def max_abs_err(got, want):
@@ -164,12 +181,13 @@ def route_steps(sa, sb, ch, xbin, max_depth):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the VHT path through the plain PyTorch versions of the three
-    kernels, on the card, for a reference run."""
+    """Route the VHT and AMRules paths through the plain PyTorch versions
+    of the four kernels, on the card, for a reference run."""
+    from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
     from repro_torch.kernels.split_gain.ref import split_gain_ref
     from repro_torch.kernels.tree_route.ref import tree_route_ref
     from repro_torch.kernels.vht_stats.ref import stats_update_ref
-    from repro_torch.ml import htree, vht
+    from repro_torch.ml import amrules, htree, vht
 
     def route_plain(sa, sb, ch, xbin, *, max_depth):
         if sa.dim() == 1:
@@ -178,14 +196,17 @@ def plain_kernels():
         return tree_route_ref(sa, sb, ch, xbin, max_depth)
 
     saved = (htree.tree_route, htree.stats_update, htree.split_gain,
-             vht.stats_update)
+             vht.stats_update, amrules.rule_stats_scatter,
+             amrules.segment_sum)
     htree.tree_route, htree.split_gain = route_plain, split_gain_ref
     htree.stats_update = vht.stats_update = stats_update_ref
+    amrules.rule_stats_scatter = amrules.segment_sum = rule_stats_scatter_ref
     try:
         yield
     finally:
         (htree.tree_route, htree.stats_update, htree.split_gain,
-         vht.stats_update) = saved
+         vht.stats_update, amrules.rule_stats_scatter,
+         amrules.segment_sum) = saved
 
 
 class Recording:
@@ -360,6 +381,110 @@ def phase_kernels(dev):
     return out
 
 
+def kernel_rule_stats(dev):
+    """rule_stats at the AMRules main path's [65, 40, 8, 3], B = 512, and
+    at HAMR-3's 510 instances: exact against the plain version (both sum
+    each cell in instance order), random rows with the discard row 65 and
+    rows past it, moments of negative and positive targets."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rule_stats.ops import (rule_moments,
+                                                    rule_stats_scatter)
+    from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+
+    rng = np.random.RandomState(3)
+    R1, m = RULES + 1, 40
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    stats = t((rng.uniform(size=(R1, m, BINS, MOMENTS)) * 5)
+              .astype(np.float32))
+    for n in (B, (B // 3) * 3):
+        seg = t(rng.randint(0, R1 + 2, n).astype(np.int32))   # >= 65: drop
+        xbin = t(rng.randint(0, BINS, (n, m)).astype(np.int32))
+        mom = rule_moments(t((rng.randn(n) * 2).astype(np.float32)))
+        got = rule_stats_scatter(stats.clone(), seg, xbin, mom)
+        want = rule_stats_scatter_ref(stats.clone(), seg, xbin, mom)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"rule_stats B={n} differs from its plain version")
+        err = max_abs_err(got, want)
+        log(f"rule_stats [{R1},{m},{BINS},{MOMENTS}] B={n}: bit-identical to "
+            f"the plain version (max abs err {err})")
+    # timing at B = 512 on the last inputs of that shape
+    seg = t(rng.randint(0, R1 + 1, B).astype(np.int32))
+    xbin = t(rng.randint(0, BINS, (B, m)).astype(np.int32))
+    mom = rule_moments(t((rng.randn(B) * 2).astype(np.float32)))
+    work = stats.clone()
+    keep = seg < R1
+    cells = (((seg.long()[:, None] * m + torch.arange(m, device=dev)) * BINS
+              + xbin.long()) * MOMENTS)[keep]                     # [b, m]
+    flat = (cells[..., None] + torch.arange(MOMENTS, device=dev)).reshape(-1)
+    vals = mom[keep][:, None, :].expand(-1, m, -1).reshape(-1).contiguous()
+    valid = int(keep.sum())
+    moved = 2 * stats.numel() * 4 + xbin.numel() * 4 + seg.numel() * 4 \
+        + mom.numel() * 4
+    ops = valid * m * MOMENTS
+    kt = timed(lambda: rule_stats_scatter(work, seg, xbin, mom))
+    pt = timed(lambda: rule_stats_scatter_ref(work, seg, xbin, mom), n=10)
+    lt = timed(lambda: work.view(-1).index_put_((flat,), vals,
+                                                accumulate=True))
+    bound_ms, bound_by = bound(moved, ops)
+    e = {"ms": kt["ms"], "call_ms": kt["call_ms"],
+         "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
+         "library_ms": lt["ms"], "library_call_ms": lt["call_ms"],
+         "bytes": moved, "ops": ops, "bound_ms": bound_ms,
+         "bound_by": bound_by, "max_abs_err": err}
+    log(f"rule_stats: device ms per launch: kernel {e['ms']:.5f}, plain "
+        f"{e['plain_ms']:.5f}, library {e['library_ms']:.5f}, bound "
+        f"{e['bound_ms']:.6f} ({e['bound_by']}), kernel/bound "
+        f"{e['ms'] / e['bound_ms']:.1f}; ms per call from the host: kernel "
+        f"{e['call_ms']:.5f}, plain {e['plain_call_ms']:.5f}, library "
+        f"{e['library_call_ms']:.5f}")
+    e["sums"] = kernel_segment_sums(dev, rng)
+    return e
+
+
+def kernel_segment_sums(dev, rng):
+    """The rule_stats kernel as ``segment_sum``, at the AMRules main path's
+    reductions (VAMR, B = 512): the per-rule sums of (1, y, |err|) over
+    the 65 rows, and the two levels of the default rule's batch sum of 4
+    columns (512 instances into 16 windows, 16 window sums into one).
+    Exact against the plain version; device ms of each launch."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rule_stats.ops import segment_sum
+    from repro_torch.kernels.rule_stats.ref import (rule_stats_scatter_ref,
+                                                    xla_windows)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    levels = xla_windows((B,), dev)
+    shapes = {"per-rule sums": (RULES + 1, t(rng.randint(
+        0, RULES + 1, B).astype(np.int32)), 3)}
+    shapes.update({f"batch sum level {k + 1}": (n_win, ids, 4)
+                   for k, (ids, _, n_win) in enumerate(levels)})
+    out = {}
+    for what, (rows, seg, k) in shapes.items():
+        n = seg.shape[0]
+        xb = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        vals = t((rng.randn(n, k) * 2).astype(np.float32))
+        zeros = torch.zeros((rows, 1, 1, k), device=dev)
+        got = segment_sum(zeros.clone(), seg, xb, vals)
+        want = rule_stats_scatter_ref(zeros.clone(), seg, xb, vals)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"segment_sum {what} differs from its plain version")
+        work = zeros.clone()
+        out[what] = timed(lambda: segment_sum(work, seg, xb, vals))
+        log(f"rule_stats as segment_sum, {what} [{rows},1,1,{k}] B={n}: "
+            f"exact; device ms {out[what]['ms']:.5f}, call ms "
+            f"{out[what]['call_ms']:.5f}")
+    return out
+
+
 def run_pair(make_learner, batches, what):
     """The learner over batches with the kernels, then with the plain
     versions; both must give the same per-batch metrics and tree.  Returns
@@ -426,12 +551,18 @@ def count_syncs(learner, state, batches):
             state, _ = learner.step(state, x, y)
         torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                for w in syncs)
+    log(f"  syncs by source line over {len(batches)} steps: {dict(where)}")
     return len(syncs) / len(batches)
 
 
-def profile_steps(learner, state, batches):
+def profile_steps(learner, state, batches, kernel=None, order=()):
     """Device busy share and device time by kernel over the steps, from a
-    torch.profiler trace (the profiler's own cost is in the wall time)."""
+    torch.profiler trace (the profiler's own cost is in the wall time).
+    With ``kernel`` and ``order``: the step launches that kernel once for
+    each name of ``order``, in that order; the device µs per step of each
+    launch, from the trace's kernel records in time order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -454,7 +585,20 @@ def profile_steps(learner, state, batches):
         f"{sum(r[1] for r in rows) / n:.1f} device ops/step")
     for us, count, key in rows[:10]:
         log(f"  {us / n:9.2f} us/step  {count / n:5.2f}/step  {key[:90]}")
-    return {"wall_us_per_step": wall_us / n, "busy_us_per_step": busy_us / n,
+    split = {}
+    if kernel is not None:
+        runs = sorted((e.time_range.start, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and kernel in e.name)
+        require(len(runs) == len(order) * n,
+                f"{kernel}: {len(runs)} launches in {n} steps, expected "
+                f"{len(order)} per step")
+        split = {what: sum(d for _, d in runs[k::len(order)]) / n
+                 for k, what in enumerate(order)}
+        log(f"  {kernel} per step by launch: " + ", ".join(
+            f"{what} {us:.2f} us" for what, us in split.items()))
+    return {"split": split,
+            "wall_us_per_step": wall_us / n, "busy_us_per_step": busy_us / n,
             "busy_share": busy_us / wall_us,
             "device_ops_per_step": sum(r[1] for r in rows) / n}
 
@@ -470,8 +614,8 @@ def phase_main(dev, smi):
     cfg = VHTConfig(tree_config(M_ATTRS, split_delay=4))
     res, count, us = run_pair(lambda: VHT(cfg, device=dev), batches,
                               "main dense-1000 wok")
-    for name, n in count.items():
-        require(n > 0, f"main path: {name} was not launched")
+    for name in VHT_KERNELS:
+        require(count[name] > 0, f"main path: {name} was not launched")
     log(f"main path dense-1000 wok B={B} x {MAIN_BATCHES}: {us:.1f} us/batch, "
         f"{res.throughput:.0f} instances/s on {smi}")
 
@@ -545,7 +689,7 @@ def phase_paths(dev):
                 f"topology {ename}: stats differ from the plain run")
         n_nodes = int(states["model-aggregator"]["n_nodes"])
         require(n_nodes > 1, f"topology {ename}: the tree did not grow")
-        require(all(n > 0 for n in count.values()),
+        require(all(count[name] > 0 for name in VHT_KERNELS),
                 f"topology {ename}: launches {count}")
         acc = float((pred == torch.stack([y for _, y in batches])).float()
                     .mean())
@@ -555,6 +699,148 @@ def phase_paths(dev):
         out[f"topology dense-200 {ename}"] = {"us_per_batch": us,
                                               "launches": count}
     return out
+
+
+def rules_stream(name, n_batches, dev):
+    """(m, batches of (xbin [B, m] i32, y [B] f32)) of the regression
+    streams of benchmarks/amrules_benchmarks.py, drawn on the card."""
+    import torch
+    from repro_torch.data.generators import (ElectricityLikeGenerator,
+                                             WaveformGenerator, bin_numeric)
+    if name == "waveform":
+        gen = WaveformGenerator(device=dev)
+        sample, m = gen.sample_regression, gen.n_attrs
+    else:
+        gen = ElectricityLikeGenerator()
+        sample, m = gen.sample, gen.n_attrs
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    batches = []
+    for _ in range(n_batches):
+        x, y = sample(g, B)
+        batches.append((bin_numeric(x, BINS), y))
+    return m, batches
+
+
+def same_state(a, b):
+    """Every leaf equal, float leaves bit for bit."""
+    import torch
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return False
+    return True
+
+
+def run_rules(make_learner, batches, what):
+    """One AMRules learner over batches: with the kernel, again with the
+    kernel, and with the plain versions.  Returns (result, launches of the
+    first run, us/batch)."""
+    import torch
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.kernels import launches, reset_launches
+
+    rec = Recording(make_learner())
+    torch.cuda.synchronize()
+    reset_launches()
+    res = PrequentialEvaluation(rec, batches).run()
+    count = launches()
+    again = PrequentialEvaluation(Recording(make_learner()), batches).run()
+    require(same_state(res.extra["state"], again.extra["state"]),
+            f"{what}: two runs with the kernel differ")
+    plain = Recording(make_learner())
+    with plain_kernels():
+        reset_launches()
+        ref = PrequentialEvaluation(plain, batches).run()
+        require(sum(launches().values()) == 0, "plain run launched a kernel")
+    for key in ("abs_err", "sq_err", "n_rules"):
+        require(torch.equal(stacked(rec.metrics, key),
+                            stacked(plain.metrics, key)),
+                f"{what}: per-batch {key} differs from the plain run")
+    st = res.extra["state"]
+    require(same_state(st, ref.extra["state"]),
+            f"{what}: final state differs from the plain run")
+    require(count["rule_stats"] > 0,
+            f"{what}: the moment statistics did not launch rule_stats")
+    require(count["segment_sum"] > 0,
+            f"{what}: the reductions did not launch rule_stats")
+    require(int(st["n_created"]) > 0, f"{what}: no rule was created")
+    require(math.isfinite(res.metric) and res.metric >= 0,
+            f"{what}: MAE {res.metric}")
+    us = 1e6 * batches[0][1].shape[0] / res.throughput
+    log(f"{what}: MAE {res.metric:.4f} rules {int(st['n_rules'])} created "
+        f"{int(st['n_created'])} removed {int(st['n_removed'])} feats "
+        f"{int(st['n_feats'])} {us:.1f} us/batch {res.throughput:.0f} "
+        f"inst/s launches {count}; same as a second run and as the plain "
+        "run")
+    return res, count, us
+
+
+def phase_rules(dev, smi):
+    """MAMR, VAMR and HAMR-2 on both streams; VAMR on waveform-40 first, as
+    the main path, with its syncs per step and a profile."""
+    from repro_torch.core.pytree import tree_clone
+    from repro_torch.ml.amrules import AMRules, HAMR, RulesConfig, VAMR
+
+    learners = {"VAMR": VAMR, "MAMR": AMRules,
+                "HAMR-2": lambda rc, device: HAMR(rc, replicas=2,
+                                                  device=device)}
+    out = {}
+    for stream_name in ("waveform", "electricity"):
+        m, batches = rules_stream(stream_name, RULES_BATCHES, dev)
+        rc = RulesConfig(n_attrs=m, n_bins=BINS, max_rules=RULES, n_min=200)
+        for name, mk in learners.items():
+            what = f"{stream_name}-{m} {name}"
+            res, count, us = run_rules(lambda: mk(rc, device=dev), batches,
+                                       what)
+            out[what] = {"us_per_batch": us, "inst_per_s": res.throughput,
+                         "mae": res.metric, "launches": count,
+                         "n_created": int(res.extra["state"]["n_created"])}
+            if what != "waveform-40 VAMR":
+                continue
+            st = res.extra["state"]
+            syncs = count_syncs(VAMR(rc, device=dev), tree_clone(st),
+                                batches[:20])
+            log(f"amrules main path: {syncs:.2f} device-to-host syncs per "
+                "step (VAMR.step alone, torch sync debug mode)")
+            prof = profile_steps(VAMR(rc, device=dev), tree_clone(st),
+                                 batches[:50], "rule_stats_kernel",
+                                 ("per-rule sums", "moment statistics",
+                                  "batch sum level 1", "batch sum level 2"))
+            out[what].update(syncs_per_step=syncs, profile=prof)
+            log(f"amrules main path waveform-40 VAMR B={B} x {RULES_BATCHES}:"
+                f" {us:.1f} us/batch, {res.throughput:.0f} instances/s on "
+                f"{smi}")
+    return out
+
+
+def rules_split(e, amr):
+    """The AMRules main path's rule_stats device time per step, split
+    between the moment statistics and the reductions of segment_sum
+    (per-rule sums, then the batch sum's levels; one launch each per
+    step): from the profile's kernel records of the path, and from the
+    launch timings of the kernel phase on its random inputs."""
+    steps = RULES_BATCHES
+    n_stats = amr["launches"]["rule_stats"] / steps
+    n_sums = amr["launches"]["segment_sum"] / steps
+    require(n_stats == 1 and n_sums == len(e["sums"]),
+            f"main path: {n_stats} statistics and {n_sums} reduction "
+            f"launches per step, timed 1 and {len(e['sums'])}")
+    prof = amr["profile"]["split"]
+    split = {"profile": {"stats_us_per_step": prof["moment statistics"],
+                         "sums_us_per_step": sum(
+                             v for k, v in prof.items()
+                             if k != "moment statistics")},
+             "launch_timings": {"stats_us_per_step": 1e3 * e["ms"],
+                                "sums_us_per_step": 1e3 * sum(
+                                    v["ms"] for v in e["sums"].values())}}
+    amr["rule_stats_split"] = split
+    for src, v in split.items():
+        log(f"amrules main path rule_stats device time per step ({src}): "
+            f"moment statistics {v['stats_us_per_step']:.2f} us, reductions "
+            f"{v['sums_us_per_step']:.2f} us")
 
 
 def main():
@@ -570,27 +856,36 @@ def main():
     smi = phase_device()
     phase_build()
     kern = phase_kernels(dev)
+    kern["rule_stats"] = kernel_rule_stats(dev)
     main_path = phase_main(dev, smi)
     paths = phase_paths(dev)
+    rules = phase_rules(dev, smi)
 
-    sources = {"tree_route": "src/repro_torch/csrc/tree_route.cu",
-               "vht_stats": "src/repro_torch/csrc/vht_stats.cu",
-               "split_gain": "src/repro_torch/csrc/split_gain.cu"}
+    names = ("tree_route", "vht_stats", "split_gain", "rule_stats")
     replaces = {"tree_route": "src/repro/kernels/tree_route/kernel.py:68",
                 "vht_stats": "src/repro/kernels/vht_stats/kernel.py:69",
-                "split_gain": "src/repro/kernels/split_gain/kernel.py:58"}
+                "split_gain": "src/repro/kernels/split_gain/kernel.py:58",
+                "rule_stats": "src/repro/kernels/rule_stats/kernel.py:71"}
+    # each kernel's launches on the main path that runs it; rule_stats
+    # counts the moment statistics, the work of the TPU kernel it replaces
+    path_launches = dict(main_path["launches"])
+    amr = rules["waveform-40 VAMR"]
+    path_launches["rule_stats"] = amr["launches"]["rule_stats"]
+    rules_split(kern["rule_stats"], amr)
     rows = []
-    for name in ("tree_route", "vht_stats", "split_gain"):
+    for name in names:
         e = kern[name]
-        rows.append({"name": name, "route": "cuda", "source": sources[name],
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{name}.cu",
                      "replaces": replaces[name],
-                     "launches": main_path["launches"][name],
+                     "launches": path_launches[name],
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                      "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
     log(f"split_gain full fallback [{N_NODES},{M_ATTRS},{BINS},{C}]: "
         f"{json.dumps(kern['split_gain_full'])}")
     log(f"paths: {json.dumps(paths)}")
+    log(f"rules: {json.dumps(rules)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,19 +1,26 @@
-"""Synthetic dense stream generator of the paper's evaluation (section 6.3).
+"""Synthetic stream generators of the paper's evaluation.
 
-Port of ``bin_numeric`` and ``RandomTreeGenerator`` of
-``repro/data/generators.py``.  The dense stream: attributes drawn under a
-hidden random decision tree; mixed categorical/numerical ("100-100" = 100
-cat + 100 num); binary balanced classes.
+Port of ``bin_numeric``, ``RandomTreeGenerator``, ``WaveformGenerator`` and
+``ElectricityLikeGenerator`` of ``repro/data/generators.py``:
 
-The hidden tree comes from the same ``np.random.RandomState(seed)`` draws
-as in the JAX package, so it is identical.  The samples are drawn on the
-device from a ``torch.Generator``: they follow the same distribution as
-the JAX sampler's, not the same numbers.
+  dense       -- attributes drawn under a hidden random decision tree;
+                 mixed categorical/numerical ("100-100" = 100 cat + 100
+                 num); binary balanced classes (section 6.3).
+  waveform    -- 21 waveform attributes + 19 noise, the waveform index as
+                 a numeric target (section 7.3).
+  electricity -- household power-consumption-like autoregressive series,
+                 12 attributes, numeric target (section 7.3).
+
+Constants (the hidden tree, the base waveforms) are the JAX package's own:
+the same ``np.random.RandomState(seed)`` draws, or the same formula.  The
+samples are drawn on the device from a ``torch.Generator``: they follow the
+same distribution as the JAX sampler's, not the same numbers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -96,3 +103,74 @@ class RandomTreeGenerator:
                              device=dev, dtype=i32)
         x = (bins.to(f32) + 0.5) / n_bins         # bin midpoints in [0, 1]
         return bins, self._label(x)
+
+
+@dataclasses.dataclass
+class WaveformGenerator:
+    """3 base waveforms, 21 signal + 19 noise attrs; label = waveform id,
+    taken as a numeric target by the regression learners (section 7.3)."""
+    seed: int = 7
+    n_attrs_signal: int = 21
+    n_noise: int = 19
+    device: object = None
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        t = np.arange(self.n_attrs_signal)
+        w = np.stack([
+            np.maximum(6 - np.abs(t - 7), 0),
+            np.maximum(6 - np.abs(t - 13), 0),
+            np.maximum(6 - np.abs(t - 3), 0) + np.maximum(6 - np.abs(t - 17), 0),
+        ]) / 6.0
+        self._wave = torch.as_tensor(w.astype(np.float32), device=dev)
+
+    @property
+    def n_attrs(self):
+        return self.n_attrs_signal + self.n_noise
+
+    @property
+    def n_classes(self):
+        return 3
+
+    def sample(self, generator: torch.Generator, n: int):
+        """(x [n, 40] f32 in [0, 1], y [n] i32 waveform id), drawn from
+        ``generator`` on its device."""
+        dev = generator.device
+        y = torch.randint(0, 3, (n,), generator=generator, device=dev)
+        u = torch.rand((n, 1), generator=generator, device=dev)
+        base = u * self._wave[y] + (1 - u) * self._wave[(y + 1) % 3]
+        sig = base + 0.1 * torch.randn((n, self.n_attrs_signal),
+                                       generator=generator, device=dev)
+        noise = torch.rand((n, self.n_noise), generator=generator, device=dev)
+        x = torch.cat([torch.clamp(sig, 0, 1), noise], 1)
+        return x, y.to(i32)
+
+    def sample_regression(self, generator: torch.Generator, n: int):
+        x, y = self.sample(generator, n)
+        return x, y.to(f32)
+
+
+@dataclasses.dataclass
+class ElectricityLikeGenerator:
+    """Autoregressive household-consumption-like series: 12 attrs, numeric
+    target (watt-hours) in [0, 1]."""
+    seed: int = 7
+    n_attrs: int = 12
+
+    def sample(self, generator: torch.Generator, n: int):
+        """(x [n, n_attrs] f32 in [0, 1], target [n] f32), drawn from
+        ``generator`` on its device."""
+        dev = generator.device
+        t = torch.rand((n,), generator=generator, device=dev) * 2 * math.pi
+        daily = 0.5 + 0.3 * torch.sin(t) + 0.1 * torch.sin(3 * t)
+        feats = [daily[:, None]]
+        carry = daily
+        noise = torch.randn((n, self.n_attrs - 1), generator=generator,
+                            device=dev) * 0.05
+        for j in range(self.n_attrs - 1):
+            carry = torch.clamp(0.8 * carry + 0.2 * noise[:, j] + 0.05, 0, 1)
+            feats.append(carry[:, None])
+        x = torch.cat(feats, 1)
+        target = torch.clamp(0.6 * daily + 0.4 * x[:, -1] + 0.05 * torch.randn(
+            (n,), generator=generator, device=dev), 0, 1)
+        return x, target

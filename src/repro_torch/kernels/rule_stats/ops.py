@@ -1,0 +1,116 @@
+"""The AMRules rule-statistics update, ``stats[r, j, b, c] += sum_i
+1[seg_i = r] 1[xbin_ij = b] mom[i, c]``, with the (w, w*y, w*y^2) moments
+of ``rule_moments``; rows outside [0, R) (AMRules' discard row R) and bins
+outside [0, bins) are dropped.
+
+``rule_stats_scatter`` launches the hand-written kernel of
+``csrc/rule_stats.cu`` for CUDA tensors and runs the plain version of
+``ref.py`` for CPU tensors; ``segment_sum`` does the same for the path's
+float reductions and counts its launches apart.  Both sum each cell in
+instance order, as XLA's CPU scatter does, so the kernel and the plain
+version agree with each other and with the JAX package bit for bit, and
+they update ``stats`` in place.  The other two functions are built on
+them and take another scatter through ``scatter=`` (the plain one, say):
+
+  rule_stats_update -- the JAX package's dispatcher: "segment" (its
+                       default path off the TPU, the R == 1 branch
+                       included; "auto" is the same here) or "onehot";
+  batch_sum         -- a whole-array sum in XLA's CPU order (by default
+                       through ``segment_sum``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rule_stats.ref import (batch_sum_with,
+                                                rule_stats_ref,
+                                                rule_stats_scatter_ref,
+                                                segment_update_with)
+
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+MAX_MOMENTS = 8         # the largest moment count csrc/rule_stats.cu takes
+
+
+def rule_moments(y, w=None):
+    """The AMRules moment matrix [B, 3]: (w, w*y, w*y^2) per instance."""
+    w = torch.ones_like(y) if w is None else w
+    return torch.stack([w, w * y, w * torch.square(y)], -1)
+
+
+def _scatter(stats, seg, xbin, mom, wrapper):
+    """The plain version for CPU tensors; for CUDA tensors the kernel,
+    counted in ``wrapper.launches``."""
+    if stats.device.type == "cpu":
+        return rule_stats_scatter_ref(stats, seg, xbin, mom)
+    R, m, bins, C = stats.shape
+    B = seg.shape[0]
+    _build.check_tensor(stats, torch.float32, (R, m, bins, C), "stats")
+    _build.check_tensor(seg, torch.int32, (B,), "seg", stats.device)
+    _build.check_tensor(xbin, torch.int32, (B, m), "xbin", stats.device)
+    _build.check_tensor(mom, torch.float32, (B, C), "mom", stats.device)
+    if C > MAX_MOMENTS:
+        raise ValueError(f"rule_stats kernel takes at most {MAX_MOMENTS} "
+                         f"moments, got {C}")
+    if R * m * bins * C == 0:
+        return stats
+    fn = _build.function("rule_stats", "rule_stats_launch", _ARGTYPES)
+    with torch.cuda.device(stats.device):
+        err = fn(stats.data_ptr(), seg.data_ptr(), xbin.data_ptr(),
+                 mom.data_ptr(), R, m, bins, C, B, _build.stream_of(stats))
+    _build.check(err, "rule_stats")
+    wrapper.launches += 1
+    return stats
+
+
+def rule_stats_scatter(stats, seg, xbin, mom):
+    """The moment statistics.  stats: [R, m, bins, C] f32; seg: [B] i32;
+    xbin: [B, m] i32; mom: [B, C] f32.  Adds each instance's moments to its
+    cells in instance order, in place; returns ``stats``."""
+    return _scatter(stats, seg, xbin, mom, rule_stats_scatter)
+
+
+def segment_sum(out, seg, xbin, vals):
+    """The same scatter, and kernel, for the path's float reductions: the
+    per-rule sums (``jax.ops.segment_sum``; one attribute, one bin) and the
+    levels of ``batch_sum``.  Counted apart from ``rule_stats_scatter``, so
+    that a run shows the moment statistics' own launches."""
+    return _scatter(out, seg, xbin, vals, segment_sum)
+
+
+rule_stats_scatter.launches = 0
+segment_sum.launches = 0
+
+
+def rule_stats_update(stats, seg, xbin, mom, *, impl: str = "auto",
+                      scatter=None):
+    """stats: [R, m, bins, C]; seg: [B] i32 in [0, R] (R = discard); xbin:
+    [B, m] i32; mom: [B, C] f32.  ``impl`` "auto" and "segment" take the
+    JAX package's segment path (the kernel on the card).  "onehot" is its
+    one-hot oracle, a new tensor, on the CPU; on the card the oracle's
+    index_add_ would sum in the order of its atomics, so there it runs the
+    scatter, which sums as the oracle does on the CPU, in instance order,
+    R == 1 included."""
+    scatter = scatter or rule_stats_scatter
+    if impl in ("auto", "segment"):
+        return segment_update_with(scatter, stats, seg, xbin, mom)
+    if impl != "onehot":
+        raise ValueError(f"unknown stats impl {impl!r} (auto, segment or "
+                         "onehot)")
+    if stats.device.type == "cpu":
+        return rule_stats_ref(stats, seg, xbin, mom)
+    return scatter(stats, seg, xbin, mom)
+
+
+def batch_sum(vals, shape=None, *, scatter=None):
+    """``vals`` [N, K] summed over its rows -> [K], in the order XLA on the
+    CPU sums a whole array of ``shape`` (default ``(N,)``): what the JAX
+    package's ``x.sum()`` gives, for K such columns at once."""
+    return batch_sum_with(scatter or segment_sum, vals, shape)
+
+
+__all__ = ["MAX_MOMENTS", "batch_sum", "rule_moments", "rule_stats_scatter",
+           "rule_stats_update", "segment_sum"]

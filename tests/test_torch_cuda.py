@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card, at the main path's shapes (B = 512, m = 1000, N = 255, bins = 8,
-C = 2).  Every test here is marked ``cuda`` and skips without a CUDA
+the card, at the main paths' shapes (VHT: B = 512, m = 1000, N = 255,
+bins = 8, C = 2; AMRules: [65, 40, 8, 3], B = 512).  Every test here is marked ``cuda`` and skips without a CUDA
 device; the file imports nothing of JAX, so it runs where JAX is not
 installed:
 
@@ -13,6 +13,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
+                                                rule_stats_scatter,
+                                                rule_stats_update)
+from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
 from repro_torch.kernels.split_gain.ops import split_gain
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.tree_route.ops import tree_route
@@ -93,3 +97,85 @@ def test_split_gain_kernel_matches_plain(cuda, N):
     torch.testing.assert_close(split_gain(stats), split_gain_ref(stats),
                                rtol=1e-4, atol=1e-4)
     assert launches()["split_gain"] == 1
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [512, 510])
+def test_rule_stats_kernel_bit_identical_to_plain(cuda, B):
+    """Both sum each cell in instance order from its old value: exact, the
+    discard row 65 and the rows past it dropped."""
+    rng = np.random.RandomState(B)
+    stats = _t((rng.uniform(size=(65, 40, 8, 3)) * 5).astype(np.float32))
+    seg = _t(rng.randint(0, 67, B).astype(np.int32))
+    xbin = _t(rng.randint(0, 8, (B, 40)).astype(np.int32))
+    mom = rule_moments(_t((rng.randn(B) * 2).astype(np.float32)))
+    stats, seg, xbin, mom = (a.to(cuda) for a in (stats, seg, xbin, mom))
+    out = rule_stats_scatter(stats.clone(), seg, xbin, mom)
+    want = rule_stats_scatter_ref(stats.clone(), seg, xbin, mom)
+    assert torch.equal(_bits(out), _bits(want))
+    assert launches()["rule_stats"] == 1
+
+
+@pytest.mark.cuda
+def test_rule_stats_default_rule_path_and_batch_sum_match_plain(cuda):
+    """The R == 1 branch (window sums by the kernel) and the whole-batch
+    sums in XLA's order give the plain version's bits."""
+    rng = np.random.RandomState(7)
+    stats = _t((rng.uniform(size=(1, 40, 8, 3)) * 5).astype(np.float32))
+    seg = _t(rng.randint(0, 2, 512).astype(np.int32))
+    xbin = _t(rng.randint(0, 8, (512, 40)).astype(np.int32))
+    mom = rule_moments(_t(rng.randn(512).astype(np.float32)))
+    vals = _t(rng.randn(512, 4).astype(np.float32))
+    stats, seg, xbin, mom, vals = (a.to(cuda)
+                                   for a in (stats, seg, xbin, mom, vals))
+    out = rule_stats_update(stats.clone(), seg, xbin, mom)
+    want = rule_stats_update(stats.clone(), seg, xbin, mom,
+                             scatter=rule_stats_scatter_ref)
+    assert torch.equal(_bits(out), _bits(want))
+    for shape in [(512,), (2, 256)]:
+        got = batch_sum(vals, shape)
+        assert torch.equal(_bits(got), _bits(
+            batch_sum(vals, shape, scatter=rule_stats_scatter_ref)))
+    # one launch for the R == 1 window sums (their sums are the plain
+    # version's), two levels of windows for each batch sum
+    assert launches()["rule_stats"] == 1
+    assert launches()["segment_sum"] == 2 * 2
+
+
+@pytest.mark.cuda
+def test_vamr_on_the_card_equals_its_plain_run_and_itself(cuda):
+    """VAMR on the waveform-40 stream: the kernel run equals the plain run
+    and a second kernel run, state leaf for leaf and bit for bit."""
+    from repro_torch.data.generators import WaveformGenerator, bin_numeric
+    from repro_torch.ml import amrules
+    from repro_torch.ml.amrules import VAMR, RulesConfig
+    gen = WaveformGenerator(device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    batches = [gen.sample_regression(g, 512) for _ in range(12)]
+    xs = torch.stack([bin_numeric(x, 8) for x, _ in batches])
+    ys = torch.stack([y for _, y in batches])
+    learner = VAMR(RulesConfig(n_attrs=40, n_min=200), device=cuda)
+    runs = [learner.run(learner.init(), xs, ys) for _ in range(2)]
+    # per step: one moment-statistics scatter; the per-rule sums and two
+    # levels of the default rule's batch sum
+    want = {"rule_stats": 2 * 12, "segment_sum": 2 * 12 * 3}
+    assert {k: launches()[k] for k in want} == want
+    saved = amrules.rule_stats_scatter, amrules.segment_sum
+    amrules.rule_stats_scatter = amrules.segment_sum = rule_stats_scatter_ref
+    try:
+        runs.append(learner.run(learner.init(), xs, ys))
+    finally:
+        amrules.rule_stats_scatter, amrules.segment_sum = saved
+    assert {k: launches()[k] for k in want} == want
+    (st, ms), *others = runs
+    assert int(st["n_created"]) > 0
+    for other_st, other_ms in others:
+        for k in st:
+            assert torch.equal(_bits(st[k]), _bits(other_st[k])), k
+        for k in ms:
+            assert torch.equal(_bits(ms[k]), _bits(other_ms[k])), k

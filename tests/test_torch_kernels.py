@@ -7,21 +7,34 @@ interpret mode, on the same inputs made from a numpy seed.  Routing and
 integer-valued counts must be identical; float reductions agree within
 the tolerances tests/test_kernels.py uses, because sums are taken in
 another order (vht_stats, atol 1e-5) and log2 can differ by an ulp
-between libraries (split_gain, atol = rtol = 1e-4).
+between libraries (split_gain, atol = rtol = 1e-4).  rule_stats is
+bit-identical to the JAX package's segment path, which sums in the same
+order; against the one-hot oracle and the Pallas kernel, which sum in
+another, it agrees within tests/test_fused.py's rtol 1e-5, atol 1e-3.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and these
+# small tensors gain nothing from more
+torch.set_num_threads(1)
 
+from repro.kernels.rule_stats.kernel import rule_stats_pallas
+from repro.kernels.rule_stats.ops import rule_moments as jax_rule_moments
+from repro.kernels.rule_stats.ops import rule_stats_update as jax_rule_stats
+from repro.kernels.rule_stats.ref import rule_stats_ref as jax_rule_stats_ref
 from repro.kernels.split_gain.ops import split_gain as jax_split_gain
 from repro.kernels.split_gain.ref import split_gain_ref as jax_split_gain_ref
 from repro.kernels.tree_route.ops import tree_route as jax_tree_route
 from repro.kernels.tree_route.ref import tree_route_ref as jax_tree_route_ref
 from repro.kernels.vht_stats.ops import stats_update as jax_stats_update
 from repro.kernels.vht_stats.ref import stats_update_ref as jax_stats_ref
+from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
+                                                rule_stats_update)
 from repro_torch.kernels.split_gain.ops import NEG, split_gain
 from repro_torch.kernels.tree_route.ops import tree_route
 from repro_torch.kernels.vht_stats.ops import stats_update
@@ -171,3 +184,96 @@ def test_tree_route_depth_cut_matches_jax():
     out = tree_route(_t(sa), _t(sb), _t(ch), _t(xbin), max_depth=2)
     want = jax_tree_route_ref(*[jnp.asarray(a) for a in (sa, sb, ch, xbin)], 2)
     np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+# ------------------------------ rule_stats ----------------------------------
+
+def _rule_inputs(R, m, nb, B, seed):
+    """Statistics, rows in [0, R] (R is the discard row), bins and the
+    (1, y, y^2) moments of targets in [-1, 1), as tests/test_fused.py
+    draws them."""
+    rng = np.random.RandomState(seed)
+    stats = (rng.uniform(size=(R, m, nb, 3)) * 5).astype(np.float32)
+    seg = rng.randint(0, R + 1, B).astype(np.int32)
+    xbin = rng.randint(0, nb, (B, m)).astype(np.int32)
+    y = (rng.uniform(size=B) * 2 - 1).astype(np.float32)
+    return stats, seg, xbin, y
+
+
+RULE_SHAPES = [(1, 11, 8, 64), (16, 11, 8, 64), (1, 5, 4, 100),
+               (33, 40, 8, 256), (65, 12, 8, 510)]
+
+
+@pytest.mark.parametrize("R,m,nb,B", RULE_SHAPES)
+def test_rule_stats_plain_bit_identical_to_jax_segment(R, m, nb, B):
+    """The JAX package's default path off the TPU: R > 1 scatters in
+    instance order, R == 1 sums the batch in XLA's reduction order; the
+    port follows both bit for bit, drop row included."""
+    stats, seg, xbin, y = _rule_inputs(R, m, nb, B, seed=R + m + B)
+    mom = rule_moments(_t(y))
+    np.testing.assert_array_equal(mom.numpy(),
+                                  np.asarray(jax_rule_moments(jnp.asarray(y))))
+    out = rule_stats_update(_t(stats), _t(seg), _t(xbin), mom,
+                            impl="segment").numpy()
+    want = np.asarray(jax_rule_stats(stats, seg, xbin, mom.numpy(),
+                                     impl="segment"))
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("R,m,nb,B", RULE_SHAPES[:4])
+def test_rule_stats_plain_matches_oracle_and_pallas(R, m, nb, B):
+    """Against the one-hot oracle and the Pallas kernel in interpret mode,
+    which sum in other orders: tests/test_fused.py's tolerance."""
+    stats, seg, xbin, y = _rule_inputs(R, m, nb, B, seed=R * m + B)
+    mom = rule_moments(_t(y))
+    args = (_t(stats), _t(seg), _t(xbin), mom)
+    out = rule_stats_update(*[a.clone() for a in args]).numpy()
+    oracle = rule_stats_update(*args, impl="onehot").numpy()
+    jargs = (stats, seg, xbin, mom.numpy())
+    for want in (oracle, jax_rule_stats_ref(*jargs),
+                 rule_stats_pallas(*jargs, interpret=True)):
+        np.testing.assert_allclose(out, np.asarray(want), rtol=1e-5,
+                                   atol=1e-3)
+
+
+def test_rule_stats_plain_sums_a_full_cell_in_instance_order():
+    """Every instance in one row and one bin: the plain version's passes
+    over distinct cells add all B moments to the same cells, one after
+    another in instance order, as JAX's segment path does."""
+    stats, _, _, y = _rule_inputs(3, 4, 8, 300, seed=5)
+    seg = np.zeros(300, np.int32)
+    xbin = np.full((300, 4), 2, np.int32)
+    mom = rule_moments(_t(y * 1000))
+    out = rule_stats_update(_t(stats), _t(seg), _t(xbin), mom,
+                            impl="segment").numpy()
+    want = np.asarray(jax_rule_stats(stats, seg, xbin, mom.numpy(),
+                                     impl="segment"))
+    np.testing.assert_array_equal(out, want)
+
+
+def test_rule_stats_drops_rows_and_bins_out_of_range():
+    """Rows past the discard row, negative rows and bins outside [0, bins)
+    change nothing; the onehot oracle drops them too."""
+    stats = torch.ones((4, 3, 4, 3))
+    seg = torch.tensor([4, 5, -1, 0, 1], dtype=torch.int32)
+    xbin = torch.tensor([[0, 1, 2], [0, 1, 2], [0, 1, 2], [-1, 4, 7],
+                         [9, -3, 4]], dtype=torch.int32)
+    mom = rule_moments(torch.arange(5, dtype=torch.float32))
+    for impl in ("segment", "onehot"):
+        out = rule_stats_update(stats.clone(), seg, xbin, mom, impl=impl)
+        torch.testing.assert_close(out, stats, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(20,), (256,), (510,), (512,), (1100,),
+                                   (2, 128), (2, 256), (3, 170)])
+def test_batch_sum_bit_identical_to_jax_sum(shape):
+    """A whole-array sum in XLA's CPU order: windows of 32 (padded half in
+    front), each summed from 0, then the window sums; 2-D arrays as the
+    HAMR error sums are."""
+    rng = np.random.RandomState(len(shape) * 1000 + shape[-1])
+    a = (rng.randn(*shape) * 100).astype(np.float32)
+    b = (rng.randn(*shape) * 0.01).astype(np.float32)
+    got = batch_sum(_t(np.stack([a.reshape(-1), b.reshape(-1)], -1)), shape)
+    for k, x in enumerate((a, b)):
+        want = np.asarray(jax.jit(lambda v: v.sum())(x))
+        assert got[k].numpy() == want, (k, got[k].item(), want)

@@ -11,9 +11,14 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and these
+# small tensors gain nothing from more
+torch.set_num_threads(1)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNELS, launches, reset_launches
+from repro_torch.kernels.rule_stats.ops import segment_sum
+from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.tree_route.ref import tree_route_ref
 from repro_torch.kernels.vht_stats.ref import stats_update_ref
@@ -103,25 +108,35 @@ def _cpu_inputs():
     sa = torch.tensor([0, -1, -1], dtype=torch.int32)
     sb = torch.tensor([1, 0, 0], dtype=torch.int32)
     ch = torch.tensor([[1, 2], [0, 0], [0, 0]], dtype=torch.int32)
-    return stats, leaf, xbin, y, w, sa, sb, ch
+    mom = torch.rand((16, 3), generator=g)
+    return stats, leaf, xbin, y, w, sa, sb, ch, mom
+
+
+NO_LAUNCHES = {"tree_route": 0, "vht_stats": 0, "split_gain": 0,
+               "rule_stats": 0, "segment_sum": 0}
 
 
 def test_wrappers_take_the_plain_path_on_cpu_without_counting():
-    stats, leaf, xbin, y, w, sa, sb, ch = _cpu_inputs()
+    stats, leaf, xbin, y, w, sa, sb, ch, mom = _cpu_inputs()
     reset_launches()
     got = KERNELS["vht_stats"](stats.clone(), leaf, xbin, y, w)
     assert torch.equal(got, stats_update_ref(stats.clone(), leaf, xbin, y, w))
     assert torch.equal(KERNELS["split_gain"](stats), split_gain_ref(stats))
     assert torch.equal(KERNELS["tree_route"](sa, sb, ch, xbin, max_depth=4),
                        tree_route_ref(sa[None], sb[None], ch[None], xbin, 4)[0])
-    assert launches() == {"tree_route": 0, "vht_stats": 0, "split_gain": 0}
+    rstats = stats[..., :1].expand(8, 6, 4, 3).contiguous()
+    assert torch.equal(KERNELS["rule_stats"](rstats.clone(), leaf, xbin, mom),
+                       rule_stats_scatter_ref(rstats.clone(), leaf, xbin, mom))
+    assert torch.equal(segment_sum(rstats.clone(), leaf, xbin, mom),
+                       rule_stats_scatter_ref(rstats.clone(), leaf, xbin, mom))
+    assert launches() == NO_LAUNCHES
 
 
 def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
     """A tensor that is not on the CPU goes to the kernel or raises; it is
     never run through the plain version."""
-    stats, leaf, xbin, y, w, sa, sb, ch = [t.to("meta")
-                                           for t in _cpu_inputs()]
+    stats, leaf, xbin, y, w, sa, sb, ch, mom = [t.to("meta")
+                                                for t in _cpu_inputs()]
     reset_launches()
     with pytest.raises(ValueError):
         KERNELS["vht_stats"](stats, leaf, xbin, y, w)
@@ -129,5 +144,29 @@ def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
         KERNELS["split_gain"](stats)
     with pytest.raises(ValueError):
         KERNELS["tree_route"](sa, sb, ch, xbin, max_depth=4)
-    assert launches() == {"tree_route": 0, "vht_stats": 0, "split_gain": 0}
+    with pytest.raises(ValueError):
+        KERNELS["rule_stats"](torch.zeros((8, 6, 4, 3), device="meta"), leaf,
+                              xbin, mom)
+    with pytest.raises(ValueError):
+        segment_sum(torch.zeros((8, 6, 4, 3), device="meta"), leaf, xbin, mom)
+    assert launches() == NO_LAUNCHES
+
+
+def test_amrules_default_device_is_cuda_and_raises_without_one(monkeypatch):
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.data.generators import WaveformGenerator
+    from repro_torch.ml.amrules import HAMR, VAMR, AMRules, RulesConfig
+    from repro_torch.ml.detectors import DetectorBank
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = RulesConfig(n_attrs=4)
+    for learner in (AMRules(rc), VAMR(rc), HAMR(rc)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            learner.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalEngine().init(AMRules(rc))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DetectorBank("ph_ema", 4).init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WaveformGenerator()
+    assert AMRules(rc, device="cpu").init()["stats"].device.type == "cpu"
 

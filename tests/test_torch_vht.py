@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and these
+# small tensors gain nothing from more
+torch.set_num_threads(1)
 
 from repro.core.engines import JitEngine
 from repro.core.engines import LocalEngine as JaxLocalEngine
