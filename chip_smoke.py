@@ -35,8 +35,24 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  versions on the card, and the same state, bit for bit, as
                  a second run with the kernel.  The main path's rule_stats
                  time per step is split between the two uses.
-  7. result   -- one JSON line of per-kernel numbers, then, as the last line,
+  7. lm       -- the LM zoo's serving path at full width, one model at a
+                 time: falcon_mamba_7b (64 Mamba-1 layers, d_model 4096) and
+                 qwen15_4b (40 attention layers, 20 heads of 128), random
+                 weights from a seed.  The prefill step on 4 prompts of 2048
+                 tokens must launch selective_scan once per falcon layer and
+                 flash_attention once per qwen layer, give finite logits,
+                 and agree with its re-run with the plain versions on the
+                 card; then serve (4 prompts of 256 replayed into the caches,
+                 32 greedy tokens), whose last replay logits must agree with
+                 the prefill step on the same prompts.  Prints TTFT, decode
+                 ms per step and tokens/s, and the device's busy share.
+  8. result   -- one JSON line of per-kernel numbers, then, as the last line,
                  {"ok": true, "device": {...}}.
+
+Phase 3 also checks selective_scan at falcon's prefill shape (B = 4,
+S = 2048, dI = 8192, N = 16, float32) and flash_attention at qwen's (B = 4,
+S = T = 2048, 20 heads of 128, bf16, causal), plus GQA, MQA, window,
+non-causal and ragged cases.
 """
 
 from __future__ import annotations
@@ -55,12 +71,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 B, M_ATTRS, N_NODES, BINS, C, DEPTH = 512, 1000, 255, 8, 2, 24
 MAIN_BATCHES = 200
 # AMRules: RulesConfig(n_attrs=m, n_bins=8, max_rules=64, n_min=200), the
 # statistics extended by the default rule's row: [65, 40, 8, 3] at m = 40
 RULES, RULES_BATCHES, MOMENTS = 64, 80, 3
 VHT_KERNELS = ("tree_route", "vht_stats", "split_gain")
+# the LM serving path: prefill of LM_B prompts of LM_S tokens; serve replays
+# SERVE_PROMPT tokens into the caches and decodes SERVE_GEN
+LM_B, LM_S, SERVE_PROMPT, SERVE_GEN, PROFILE_DECODE = 4, 2048, 256, 32, 8
+LM_ARCHS = {"falcon_mamba_7b": "selective_scan", "qwen15_4b": "flash_attention"}
+# the kernel run against the plain run of the prefill step, and the
+# prompt replay against the prefill step, compare the max-shifted last
+# logits with tests/test_consistency.py's rtol 0.05 and atol 0.1, the atol
+# raised to LM_ULPS bf16 ulps of the largest |logit|: the logits are bf16
+# before their float32 cast, and at full width they reach about 5 (SMOKE:
+# under 1), where one ulp is 0.031.  The replay's decode-shaped products
+# round otherwise than the prefill's at every layer (3.1 ulps apart on
+# qwen15_4b on an H100); a wrong kernel or cache misses by whole logits.
+LM_ULPS = 8
 
 
 def log(*args):
@@ -118,20 +148,21 @@ def device_ms(fn, n=50, reps=7):
     return statistics.median(times)
 
 
-def timed(fn, n=50):
+def timed(fn, n=50, reps=7):
     """{"ms": device ms, "call_ms": ms per call from the host}."""
-    return {"ms": device_ms(fn, n=n), "call_ms": call_ms(fn, n=n)}
+    return {"ms": device_ms(fn, n=n, reps=reps), "call_ms": call_ms(fn, n=n)}
 
 
 def max_abs_err(got, want):
     return float((got.double() - want.double()).abs().max())
 
 
-def bound(moved, ops):
+def bound(moved, ops, rate=FP32_OPS_PER_S):
     """(ms, "bytes" or "operations"): the least time the card needs for
-    `moved` bytes at its memory rate and `ops` float32 operations at its
-    peak rate, and which of the two sets it."""
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    `moved` bytes at its memory rate and `ops` operations at its peak
+    `rate` (float32 outside the tensor cores unless given), and which of
+    the two sets it."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -181,13 +212,16 @@ def route_steps(sa, sb, ch, xbin, max_depth):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the VHT and AMRules paths through the plain PyTorch versions
-    of the four kernels, on the card, for a reference run."""
+    """Route the VHT, AMRules and LM paths through the plain PyTorch
+    versions of the six kernels, on the card, for a reference run."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     from repro_torch.kernels.split_gain.ref import split_gain_ref
     from repro_torch.kernels.tree_route.ref import tree_route_ref
     from repro_torch.kernels.vht_stats.ref import stats_update_ref
     from repro_torch.ml import amrules, htree, vht
+    from repro_torch.models import layers
 
     def route_plain(sa, sb, ch, xbin, *, max_depth):
         if sa.dim() == 1:
@@ -197,16 +231,20 @@ def plain_kernels():
 
     saved = (htree.tree_route, htree.stats_update, htree.split_gain,
              vht.stats_update, amrules.rule_stats_scatter,
-             amrules.segment_sum)
+             amrules.segment_sum, layers.selective_scan,
+             layers.flash_attention)
     htree.tree_route, htree.split_gain = route_plain, split_gain_ref
     htree.stats_update = vht.stats_update = stats_update_ref
     amrules.rule_stats_scatter = amrules.segment_sum = rule_stats_scatter_ref
+    layers.selective_scan = selective_scan_ref
+    layers.flash_attention = flash_attention_ref
     try:
         yield
     finally:
         (htree.tree_route, htree.stats_update, htree.split_gain,
          vht.stats_update, amrules.rule_stats_scatter,
-         amrules.segment_sum) = saved
+         amrules.segment_sum, layers.selective_scan,
+         layers.flash_attention) = saved
 
 
 class Recording:
@@ -372,12 +410,7 @@ def phase_kernels(dev):
             " (atol=rtol=1e-4)")
         out["split_gain" if rows == 16 else "split_gain_full"] = entry
     for name, e in out.items():
-        log(f"{name}: device ms per launch: kernel {e['ms']:.5f}, plain "
-            f"{e['plain_ms']:.5f}, library {e['library_ms']}, bound "
-            f"{e['bound_ms']:.6f} ({e['bound_by']}), kernel/bound "
-            f"{e['ms'] / e['bound_ms']:.1f}; ms per call from the "
-            f"host: kernel {e['call_ms']:.5f}, plain {e['plain_call_ms']:.5f},"
-            f" library {e.get('library_call_ms')}")
+        log_kernel(name, e)
     return out
 
 
@@ -843,6 +876,287 @@ def rules_split(e, amr):
             f"{v['sums_us_per_step']:.2f} us")
 
 
+def log_kernel(name, e):
+    log(f"{name}: device ms per launch: kernel {e['ms']:.5f}, plain "
+        f"{e['plain_ms']:.5f}, library {e['library_ms']}, bound "
+        f"{e['bound_ms']:.6f} ({e['bound_by']}), kernel/bound "
+        f"{e['ms'] / e['bound_ms']:.1f}; ms per call from the host: kernel "
+        f"{e['call_ms']:.5f}, plain {e['plain_call_ms']:.5f}, library "
+        f"{e.get('library_call_ms')}")
+
+
+def kernel_selective_scan(dev):
+    """selective_scan at falcon_mamba_7b's prefill shape (B = 4, S = 2048,
+    dI = 8192, N = 16, float32; tests/test_kernels.py's input scales)
+    against its plain version, within 2e-4 of the values' range
+    (tests/test_kernels.py's atol), and two halves with the state carried
+    against the whole."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    Bs, S, dI, N = LM_B, LM_S, 8192, 16
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    args = (F.softplus(r(Bs, S, dI)) * 0.1, r(Bs, S, dI), r(Bs, S, N) * 0.5,
+            r(Bs, S, N) * 0.5, -torch.exp(r(dI, N) * 0.3), r(Bs, dI, N) * 0.1)
+    dt, x, Bm, Cm, A, h0 = args
+    y, hT = selective_scan(*args)
+    y_ref, h_ref = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    tol = 2e-4 * max(1.0, float(y_ref.abs().max()), float(h_ref.abs().max()))
+    err = max(max_abs_err(y, y_ref), max_abs_err(hT, h_ref))
+    require(err <= tol, f"selective_scan max abs err {err} > {tol}")
+    half = S // 2
+    y1, h1 = selective_scan(dt[:, :half], x[:, :half], Bm[:, :half],
+                            Cm[:, :half], A, h0)
+    y2, h2 = selective_scan(dt[:, half:], x[:, half:], Bm[:, half:],
+                            Cm[:, half:], A, h1)
+    chain = max(max_abs_err(torch.cat([y1, y2], 1), y), max_abs_err(h2, hT))
+    require(chain <= tol, f"selective_scan two halves differ by {chain}")
+    log(f"selective_scan [{Bs},{S},{dI}] N={N} f32: max abs err {err:.3g} "
+        f"(tol {tol:.3g}); two halves chained vs the whole {chain:.3g}")
+    # dt, x, y [B,S,dI] + Bm, Cm [B,S,N] + A + h0, hT, float32; per (b, t,
+    # channel): dt*x, and per state n: dt*A, exp, *h, +, *B, *C, + (7)
+    moved = 4 * (3 * Bs * S * dI + 2 * Bs * S * N + dI * N + 2 * Bs * dI * N)
+    ops = Bs * S * dI * (7 * N + 1)
+    bound_ms, bound_by = bound(moved, ops)
+    kt = timed(lambda: selective_scan(*args))
+    pt = timed(lambda: selective_scan_ref(*args), n=3, reps=3)
+    e = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+         "plain_call_ms": pt["call_ms"], "library_ms": None, "bytes": moved,
+         "ops": ops, "bound_ms": bound_ms, "bound_by": bound_by,
+         "max_abs_err": err, "chain_err": chain}
+    log_kernel("selective_scan", e)
+    return e
+
+
+def kernel_flash_attention(dev):
+    """flash_attention at qwen15_4b's prefill shape (B = 4, S = T = 2048,
+    H = K = 20, hd = 128, bf16, causal) and in each other mode against its
+    plain version, atol 2e-2 (bf16, tests/test_kernels.py); timed beside
+    F.scaled_dot_product_attention on the same tensors (a yardstick only:
+    the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf16 = torch.bfloat16
+
+    def qkv(Bq, S, T, H, K, hd):
+        return [torch.randn((Bq, n, h, hd), generator=g, device=dev).to(bf16)
+                for n, h in ((S, H), (T, K), (T, K))]
+
+    cases = {"qwen15_4b causal": ((LM_B, LM_S, LM_S, 20, 20, 128), True, 0),
+             "GQA 8/2": ((2, 512, 512, 8, 2, 128), True, 0),
+             "MQA 8/1": ((2, 512, 512, 8, 1, 128), True, 0),
+             "window 128": ((LM_B, LM_S, LM_S, 20, 20, 128), True, 128),
+             "non-causal": ((2, 512, 512, 20, 20, 128), False, 0),
+             "ragged S = T = 1000": ((LM_B, 1000, 1000, 20, 20, 128), True, 0)}
+    errs = {}
+    for what, (shape, causal, window) in cases.items():
+        q, k, v = qkv(*shape)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        errs[what] = max_abs_err(got, want)
+        require(errs[what] <= 2e-2,
+                f"flash_attention {what} max abs err {errs[what]}")
+        log(f"flash_attention {what} {list(shape)} bf16: max abs err "
+            f"{errs[what]:.3g} (atol 2e-2)")
+    Bq, S, H, hd = LM_B, LM_S, 20, 128
+    q, k, v = qkv(Bq, S, S, H, H, hd)
+    qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))
+    moved = 4 * Bq * S * H * hd * 2                  # q, k, v, o in bf16
+    ops = 4 * Bq * H * hd * (S * (S + 1) // 2)       # two products, causal
+    bound_ms, bound_by = bound(moved, ops, rate=BF16_OPS_PER_S)
+    kt = timed(lambda: flash_attention(q, k, v, causal=True))
+    pt = timed(lambda: flash_attention_ref(q, k, v, causal=True), n=5,
+               reps=3)
+    lt = timed(lambda: F.scaled_dot_product_attention(qt, kt_, vt,
+                                                      is_causal=True))
+    e = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+         "plain_call_ms": pt["call_ms"], "library_ms": lt["ms"],
+         "library_call_ms": lt["call_ms"],
+         "bytes": moved, "ops": ops, "bound_ms": bound_ms,
+         "bound_by": bound_by, "max_abs_err": errs["qwen15_4b causal"],
+         "case_errs": errs}
+    log_kernel("flash_attention", e)
+    return e
+
+
+def profile_calls(fn, n):
+    """Wall and device-busy ms per call of fn over n calls, from a
+    torch.profiler trace, and the kernels that took most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    require(busy_us > 0, "profiler trace shows no device time")
+    top = [{"us_per_call": us / n, "per_call": c / n, "kernel": key[:80]}
+           for us, c, key in rows[:8]]
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "busy_share": busy_us / wall_us,
+            "device_ops_per_call": sum(r[1] for r in rows) / n, "top": top}
+
+
+def shifted(logits, V):
+    """Max-shifted logits over the true vocabulary, float64."""
+    a = logits[..., :V].double()
+    return a - a.max(-1, keepdim=True).values
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 numbers (8 significant bits) at magnitude v."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def logits_check(got, want, V, what):
+    """got's max-shifted logits against want's: |a - b| <= atol + 0.05|b|,
+    atol = max(0.1, LM_ULPS bf16 ulps of want's largest |logit|).  Returns
+    the max abs difference, the atol and the largest |logit|."""
+    a, b = shifted(got, V), shifted(want, V)
+    top = float(want[..., :V].abs().max())
+    atol = max(0.1, LM_ULPS * bf16_ulp(top))
+    diff = (a - b).abs()
+    excess = float((diff - 0.05 * b.abs()).max())
+    require(math.isfinite(excess) and excess <= atol,
+            f"{what}: max-shifted logits differ beyond atol {atol} + rtol "
+            f"0.05 (by {excess}; max abs diff {float(diff.max())}, largest "
+            f"|logit| {top})")
+    return {"max_abs_diff": float(diff.max()), "atol": atol,
+            "max_abs_logit": top}
+
+
+def run_lm(arch, dev, smi):
+    """One model of the LM zoo at full width: the prefill step through
+    the kernels (launches counted), its TTFT and plain re-run, then the
+    serve path and its consistency with the prefill step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import LanguageModel
+
+    cfg = get_config(arch)
+    kernel, V = LM_ARCHS[arch], cfg.vocab_size
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = LanguageModel.init(cfg, g, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{arch}: {n_params / 1e9:.3f} B parameters initialised on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, V, (LM_B, LM_S), generator=g, device=dev,
+                            dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": prompts}
+
+    # the path: one prefill, with the counts set to 0 just before it
+    torch.cuda.synchronize()
+    reset_launches()
+    last = prefill(model, batch)
+    torch.cuda.synchronize()
+    count = launches()
+    require(count[kernel] == cfg.n_layers,
+            f"{arch} prefill: {count[kernel]} {kernel} launches, expected "
+            f"one per layer ({cfg.n_layers})")
+    require(sum(count.values()) == count[kernel],
+            f"{arch} prefill launched other kernels: {count}")
+    require(bool(torch.isfinite(last[:, :V]).all()),
+            f"{arch} prefill: non-finite logits")
+    ttft = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, batch)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    ttft_ms = statistics.median(ttft)
+
+    with plain_kernels():
+        reset_launches()
+        t0 = time.perf_counter()
+        plain = prefill(model, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        require(sum(launches().values()) == 0, "plain run launched a kernel")
+    err = logits_check(last, plain, V, f"{arch} prefill, kernel vs plain")
+    log(f"{arch} prefill B={LM_B} S={LM_S}: {count[kernel]} {kernel} "
+        f"launches, finite logits, kernel vs plain run (S={LM_S}, plain "
+        f"took {plain_s:.1f} s): max abs diff {err['max_abs_diff']:.4g} "
+        f"(atol {err['atol']:.4g} + rtol 0.05, largest |logit| "
+        f"{err['max_abs_logit']:.3f}); "
+        f"TTFT {ttft_ms:.1f} ms (median of 3: {[round(t, 1) for t in ttft]})"
+        f" on {smi}")
+
+    # serve: prompt replay into the caches, then greedy decode
+    prompt = prompts[:, :SERVE_PROMPT]
+    res = generate(model, prompt, SERVE_GEN)
+    want = prefill(model, {"tokens": prompt})
+    gap = logits_check(res["prefill_logits"][:, -1], want, V,
+                       f"{arch}: prompt replay vs prefill step")
+    tokens = res["tokens"]
+    require(tokens.shape == (LM_B, SERVE_GEN) and int(tokens.min()) >= 0
+            and int(tokens.max()) < V, f"{arch}: generated tokens {tokens}")
+    decode_ms = res["decode_s"] / (SERVE_GEN - 1) * 1e3
+    tok_s = LM_B * (SERVE_GEN - 1) / res["decode_s"]
+    log(f"{arch} serve B={LM_B} prompt {SERVE_PROMPT} gen {SERVE_GEN}: "
+        f"replay {res['prefill_s']:.2f} s, decode {decode_ms:.2f} ms per "
+        f"token step, {tok_s:.1f} tokens/s; replay vs prefill step: max abs diff"
+        f" {gap['max_abs_diff']:.4g} (atol {gap['atol']:.4g} + rtol 0.05, "
+        f"largest |logit| {gap['max_abs_logit']:.3f}); sample "
+        f"{tokens[0, :8].tolist()} on {smi}")
+
+    # device busy share: one prefill, and 8 decode steps from fresh caches
+    prof_prefill = profile_calls(lambda: prefill(model, batch), 1)
+    cache = model.init_cache(LM_B, PROFILE_DECODE)
+    serve_step = make_serve_step(cfg)
+    state = {"tok": prompt[:, :1], "i": 0}
+
+    def step():
+        state["tok"], _ = serve_step(model, cache, state["tok"], state["i"])
+        state["i"] += 1
+
+    prof_decode = profile_calls(step, PROFILE_DECODE)
+    for what, p in (("prefill", prof_prefill), ("decode step", prof_decode)):
+        log(f"{arch} {what}: wall {p['wall_ms']:.2f} ms, device busy "
+            f"{p['busy_ms']:.2f} ms ({100 * p['busy_share']:.1f} %), "
+            f"{p['device_ops_per_call']:.0f} device ops; top: "
+            + "; ".join(f"{t['kernel'][:40]} {t['us_per_call']:.0f} us"
+                        for t in p["top"][:4]) + f" on {smi}")
+    replay_s = res["prefill_s"]
+    del model, cache, res
+    torch.cuda.empty_cache()
+    return {"launches": count, "n_params": n_params, "ttft_ms": ttft_ms,
+            "ttft_runs_ms": ttft, "plain_vs_kernel": err, "plain_s": plain_s,
+            "replay_vs_prefill": gap, "replay_s": replay_s,
+            "decode_ms_per_step": decode_ms, "tokens_per_s": tok_s,
+            "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+
+
+def phase_lm(dev, smi):
+    return {arch: run_lm(arch, dev, smi) for arch in LM_ARCHS}
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py: src/repro_torch not found; run it from the "
@@ -857,20 +1171,29 @@ def main():
     phase_build()
     kern = phase_kernels(dev)
     kern["rule_stats"] = kernel_rule_stats(dev)
+    kern["selective_scan"] = kernel_selective_scan(dev)
+    kern["flash_attention"] = kernel_flash_attention(dev)
     main_path = phase_main(dev, smi)
     paths = phase_paths(dev)
     rules = phase_rules(dev, smi)
+    lm = phase_lm(dev, smi)
 
-    names = ("tree_route", "vht_stats", "split_gain", "rule_stats")
-    replaces = {"tree_route": "src/repro/kernels/tree_route/kernel.py:68",
-                "vht_stats": "src/repro/kernels/vht_stats/kernel.py:69",
-                "split_gain": "src/repro/kernels/split_gain/kernel.py:58",
-                "rule_stats": "src/repro/kernels/rule_stats/kernel.py:71"}
+    names = ("tree_route", "vht_stats", "split_gain", "rule_stats",
+             "selective_scan", "flash_attention")
+    replaces = {
+        "tree_route": "src/repro/kernels/tree_route/kernel.py:68",
+        "vht_stats": "src/repro/kernels/vht_stats/kernel.py:69",
+        "split_gain": "src/repro/kernels/split_gain/kernel.py:58",
+        "rule_stats": "src/repro/kernels/rule_stats/kernel.py:71",
+        "selective_scan": "src/repro/kernels/selective_scan/kernel.py:54",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85"}
     # each kernel's launches on the main path that runs it; rule_stats
     # counts the moment statistics, the work of the TPU kernel it replaces
     path_launches = dict(main_path["launches"])
     amr = rules["waveform-40 VAMR"]
     path_launches["rule_stats"] = amr["launches"]["rule_stats"]
+    for arch, kernel in LM_ARCHS.items():
+        path_launches[kernel] = lm[arch]["launches"][kernel]
     rules_split(kern["rule_stats"], amr)
     rows = []
     for name in names:
@@ -886,6 +1209,7 @@ def main():
         f"{json.dumps(kern['split_gain_full'])}")
     log(f"paths: {json.dumps(paths)}")
     log(f"rules: {json.dumps(rules)}")
+    log(f"lm: {json.dumps(lm)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(smi)
     print(json.dumps({"kernels": rows}))

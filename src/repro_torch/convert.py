@@ -1,10 +1,13 @@
-"""Carry state between the JAX package and the port as numpy arrays.
+"""Carry state and weights between the JAX package and the port as numpy
+arrays.
 
 ``state_from_numpy`` turns a learner or topology carry of the JAX package,
 read out as numpy (``jax.tree.map(np.asarray, state)``), into the port's
-tensors; ``state_to_numpy`` goes the other way.  Dtypes are kept: f32 stays
-float32, i32 stays int32 and bool stays bool.  64-bit arrays are refused,
-because numpy makes them by default and the state holds none.
+tensors; ``state_to_numpy`` goes the other way.  ``params_from_numpy`` turns
+an LM's parameter or cache tree into the port's, split per layer.  Dtypes
+are kept: f32 stays float32, i32 stays int32, bool stays bool and bf16
+stays bfloat16.  64-bit arrays are refused, because numpy makes them by
+default and no state or weight holds one.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.pytree import tree_map
+from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -20,21 +23,47 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.bool_): torch.bool}
 
 
+def _tensor(a, dev):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy knows bf16 only through ml_dtypes; its bits travel as int16,
+        # so that neither the port nor the card's machine needs that package
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"arrays are float32, bfloat16, int32 or bool; got "
+                        f"{a.dtype} (convert fixtures explicitly)")
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
 def state_from_numpy(tree, device=None):
     """Nested dicts/lists/tuples of numpy arrays -> the same of tensors on
     ``device`` (``None`` means cuda)."""
     dev = resolve_device(device)
-
-    def one(a):
-        a = np.asarray(a)
-        if a.dtype not in _DTYPES:
-            raise TypeError(f"state arrays are float32, int32 or bool; got "
-                            f"{a.dtype} (convert fixtures explicitly)")
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
-
-    return tree_map(one, tree)
+    return tree_map(lambda a: _tensor(a, dev), tree)
 
 
 def state_to_numpy(tree):
     """Nested dicts/lists/tuples of tensors -> the same of numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def params_from_numpy(tree, cfg, device=None):
+    """An LM's parameter tree (or cache tree) of the JAX package, read out
+    as numpy, -> the port's tree on ``device`` (``None`` means cuda): each
+    layer-stacked subtree (leading axis = layer, ``lm.py::_stack_defs``)
+    becomes a list of per-layer trees.  ``LanguageModel(cfg, params)``
+    takes the parameters; ``decode_step`` takes the caches."""
+    from repro_torch.models.lm import stacks
+
+    dev = resolve_device(device)
+    stacked = {name for name, _, _ in stacks(cfg)}
+    out = {}
+    for key, sub in tree.items():
+        sub = tree_map(lambda a: _tensor(a, dev), sub)
+        if key in stacked:
+            n = tree_leaves(sub)[0].shape[0]
+            sub = [tree_map(lambda t, i=i: t[i].clone(), sub)
+                   for i in range(n)]
+        out[key] = sub
+    return out

@@ -7,13 +7,16 @@ for CPU tensors.  Each counts its launches in ``<wrapper>.launches``, so a
 run can show that it went through the kernels.
 """
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rule_stats.ops import rule_stats_scatter, segment_sum
+from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.kernels.split_gain.ops import split_gain
 from repro_torch.kernels.tree_route.ops import tree_route
 from repro_torch.kernels.vht_stats.ops import stats_update
 
 KERNELS = {"tree_route": tree_route, "vht_stats": stats_update,
-           "split_gain": split_gain, "rule_stats": rule_stats_scatter}
+           "split_gain": split_gain, "rule_stats": rule_stats_scatter,
+           "selective_scan": selective_scan, "flash_attention": flash_attention}
 # the rule_stats kernel also sums AMRules' float reductions in instance
 # order; those launches are counted apart from the moment statistics'
 COUNTED = {**KERNELS, "segment_sum": segment_sum}

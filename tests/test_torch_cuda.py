@@ -1,8 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, at the main paths' shapes (VHT: B = 512, m = 1000, N = 255,
-bins = 8, C = 2; AMRules: [65, 40, 8, 3], B = 512).  Every test here is marked ``cuda`` and skips without a CUDA
-device; the file imports nothing of JAX, so it runs where JAX is not
-installed:
+bins = 8, C = 2; AMRules: [65, 40, 8, 3], B = 512; the LM prefill:
+selective_scan at B = 4, S = 2048, dI = 8192, N = 16, flash_attention at
+B = 4, S = 2048, 20 heads of 128) and at small shapes, and the LM SMOKE
+models on the card against their plain runs.  Every test here is marked
+``cuda`` and skips without a CUDA device; the file imports nothing of JAX,
+so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -13,10 +16,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
                                                 rule_stats_scatter,
                                                 rule_stats_update)
 from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.split_gain.ops import split_gain
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.tree_route.ops import tree_route
@@ -179,3 +186,130 @@ def test_vamr_on_the_card_equals_its_plain_run_and_itself(cuda):
             assert torch.equal(_bits(st[k]), _bits(other_st[k])), k
         for k in ms:
             assert torch.equal(_bits(ms[k]), _bits(other_ms[k])), k
+
+
+def _scan_inputs(B, c, dI, N, seed, device, dtype=torch.float32):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    dt = torch.nn.functional.softplus(r(B, c, dI)) * 0.1
+    args = [dt, r(B, c, dI), r(B, c, N) * 0.5, r(B, c, N) * 0.5]
+    return [a.to(dtype) for a in args] + [-torch.exp(r(dI, N) * 0.3),
+                                          r(B, dI, N) * 0.1]
+
+
+def _scan_close(got, want):
+    """atol 2e-4 (tests/test_kernels.py), scaled to the values' range."""
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,c,dI,N,dtype", [
+    (2, 32, 128, 16, torch.float32),
+    (1, 100, 320, 5, torch.float32),       # channels not a multiple of 128
+    (2, 64, 256, 64, torch.float32),       # the largest state the kernel takes
+    (2, 64, 256, 16, torch.bfloat16),
+    (4, 2048, 8192, 16, torch.float32),    # falcon_mamba_7b prefill
+])
+def test_selective_scan_kernel_matches_plain(cuda, B, c, dI, N, dtype):
+    args = _scan_inputs(B, c, dI, N, seed=c, device=cuda, dtype=dtype)
+    y, hT = selective_scan(*args)
+    y_ref, h_ref = selective_scan_ref(*args)
+    assert y.dtype == dtype and hT.dtype == torch.float32
+    if dtype == torch.bfloat16:       # one bf16 rounding of y apart
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=2**-7,
+                                   atol=2e-4)
+    else:
+        _scan_close(y, y_ref)
+    _scan_close(hT, h_ref)
+    assert launches()["selective_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_carries_the_state(cuda):
+    """Two halves with the state carried equal the whole, from a nonzero
+    state, on non-contiguous B and C columns (slices of one projection)."""
+    dt, x, _, _, A, h0 = _scan_inputs(2, 96, 256, 16, 5, cuda)
+    proj = torch.randn((2, 96, 40), device=cuda)
+    Bm, Cm = proj[..., 4:20], proj[..., 20:36]
+    y_full, h_full = selective_scan(dt, x, Bm, Cm, A, h0)
+    h, ys = h0, []
+    for s in (slice(0, 50), slice(50, 96)):
+        y, h = selective_scan(dt[:, s], x[:, s], Bm[:, s], Cm[:, s], A, h)
+        ys.append(y)
+    _scan_close(torch.cat(ys, 1), y_full)
+    _scan_close(h, h_full)
+    _scan_close(y_full, selective_scan_ref(dt, x, Bm, Cm, A, h0)[0])
+    assert launches()["selective_scan"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,dtype,causal,window", [
+    (4, 2048, 2048, 20, 20, 128, torch.bfloat16, True, 0),   # qwen15_4b
+    (2, 512, 512, 8, 2, 64, torch.float32, True, 0),         # GQA
+    (1, 512, 512, 8, 1, 128, torch.bfloat16, True, 0),       # MQA
+    (2, 512, 512, 4, 2, 64, torch.float32, True, 128),       # window
+    (2, 300, 300, 4, 4, 32, torch.float32, False, 0),        # non-causal
+    (2, 100, 300, 4, 2, 16, torch.float32, False, 0),        # S != T
+    (2, 1000, 1000, 4, 4, 128, torch.bfloat16, True, 0),     # ragged S
+    (3, 77, 77, 2, 1, 16, torch.float32, True, 32),          # ragged, window
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, K, hd, dtype,
+                                              causal, window):
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn((B, n, h, hd), generator=g, device=cuda)
+               .to(dtype) for n, h in ((S, H), (T, K), (T, K)))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    assert launches()["flash_attention"] == 1
+
+
+def _shifted(logits, V):
+    a = logits[..., :V].float()
+    return a - a.max(-1, keepdim=True).values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kernel", [("falcon_mamba_7b", "selective_scan"),
+                                         ("qwen15_4b", "flash_attention")])
+def test_lm_smoke_on_the_card_equals_its_plain_run(cuda, arch, kernel):
+    """The SMOKE model's forward through the kernels (one launch per layer)
+    against the same forward with the plain versions on the card, and its
+    decode replay against its forward (tests/test_consistency.py's
+    tolerance, atol 0.1, rtol 0.05)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.models import layers
+    cfg = get_smoke_config(arch)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = LanguageModel.init(cfg, g, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=g,
+                           device=cuda)
+    logits, _ = model(tokens)
+    assert launches()[kernel] == cfg.n_layers
+    saved = layers.flash_attention, layers.selective_scan
+    layers.flash_attention, layers.selective_scan = (flash_attention_ref,
+                                                     selective_scan_ref)
+    try:
+        plain, _ = model(tokens)
+    finally:
+        layers.flash_attention, layers.selective_scan = saved
+    assert launches()[kernel] == cfg.n_layers
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    V = cfg.vocab_size
+    torch.testing.assert_close(_shifted(logits, V), _shifted(plain, V),
+                               rtol=0, atol=0.04)
+    cache = model.init_cache(2, 48)
+    outs = []
+    for i in range(48):
+        step, cache = model.decode_step(cache, tokens[:, i:i + 1], i)
+        outs.append(step[:, 0])
+    torch.testing.assert_close(_shifted(torch.stack(outs, 1), V),
+                               _shifted(logits, V), rtol=0.05, atol=0.1)

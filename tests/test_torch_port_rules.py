@@ -18,7 +18,9 @@ torch.set_num_threads(1)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNELS, launches, reset_launches
 from repro_torch.kernels.rule_stats.ops import segment_sum
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.tree_route.ref import tree_route_ref
 from repro_torch.kernels.vht_stats.ref import stats_update_ref
@@ -113,7 +115,21 @@ def _cpu_inputs():
 
 
 NO_LAUNCHES = {"tree_route": 0, "vht_stats": 0, "split_gain": 0,
-               "rule_stats": 0, "segment_sum": 0}
+               "rule_stats": 0, "selective_scan": 0, "flash_attention": 0,
+               "segment_sum": 0}
+
+
+def _lm_inputs(device="cpu"):
+    """selective_scan's (dt, x, Bm, Cm, A, h0) and flash_attention's (q, k,
+    v), small, on ``device``."""
+    g = torch.Generator().manual_seed(1)
+    scan = [torch.rand(shape, generator=g) * 0.1 for shape in
+            ((2, 5, 8), (2, 5, 8), (2, 5, 4), (2, 5, 4))]
+    scan += [-torch.rand((8, 4), generator=g), torch.zeros((2, 8, 4))]
+    qkv = [torch.randn((1, 7, 4, 16), generator=g),
+           torch.randn((1, 7, 2, 16), generator=g),
+           torch.randn((1, 7, 2, 16), generator=g)]
+    return [t.to(device) for t in scan], [t.to(device) for t in qkv]
 
 
 def test_wrappers_take_the_plain_path_on_cpu_without_counting():
@@ -129,6 +145,12 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
                        rule_stats_scatter_ref(rstats.clone(), leaf, xbin, mom))
     assert torch.equal(segment_sum(rstats.clone(), leaf, xbin, mom),
                        rule_stats_scatter_ref(rstats.clone(), leaf, xbin, mom))
+    scan, qkv = _lm_inputs()
+    for got, want in zip(KERNELS["selective_scan"](*scan),
+                         selective_scan_ref(*scan)):
+        assert torch.equal(got, want)
+    assert torch.equal(KERNELS["flash_attention"](*qkv, window=3),
+                       flash_attention_ref(*qkv, window=3))
     assert launches() == NO_LAUNCHES
 
 
@@ -149,6 +171,11 @@ def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
                               xbin, mom)
     with pytest.raises(ValueError):
         segment_sum(torch.zeros((8, 6, 4, 3), device="meta"), leaf, xbin, mom)
+    scan, qkv = _lm_inputs("meta")
+    with pytest.raises(ValueError):
+        KERNELS["selective_scan"](*scan)
+    with pytest.raises(ValueError):
+        KERNELS["flash_attention"](*qkv)
     assert launches() == NO_LAUNCHES
 
 
@@ -170,3 +197,20 @@ def test_amrules_default_device_is_cuda_and_raises_without_one(monkeypatch):
         WaveformGenerator()
     assert AMRules(rc, device="cpu").init()["stats"].device.type == "cpu"
 
+
+
+def test_lm_default_device_is_cuda_and_raises_without_one(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LanguageModel, init_params, param_defs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen15_4b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(param_defs(cfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LanguageModel.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen15_4b", "--smoke"])
+    model = LanguageModel.init(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert model.init_cache(1, 4)["body"][0]["k"].device.type == "cpu"
