@@ -8,7 +8,9 @@ Phases (any failure raises, and the script exits non-zero without a result):
   1. device   -- needs a CUDA device; prints the card's name and power limit
                  (nvidia-smi), the torch and CUDA versions; TF32 off.
   2. build    -- builds the hand-written kernels of src/repro_torch/csrc with
-                 nvcc into the git-ignored build/ directory.
+                 nvcc into the git-ignored build/ directory, and logs each
+                 instantiation's registers, spill bytes and shared memory
+                 for the two LM kernels (selective_scan must not spill).
   3. kernels  -- each kernel against its plain PyTorch version on the card at
                  the main path's shapes, and its median time over 50 launches
                  (CUDA events) beside the plain version's, a PyTorch library
@@ -61,6 +63,8 @@ import collections
 import contextlib
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -278,12 +282,17 @@ def same_tree(a, b):
 
 # ----------------------------------------------------------------- phases
 
-def phase_device():
-    import torch
-    smi = subprocess.run(
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+    smi = nvidia_smi()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -293,7 +302,37 @@ def phase_device():
     return smi
 
 
+def ptxas_report(text):
+    """Per kernel instantiation in nvcc's -Xptxas -v output: its name
+    (demangled by c++filt where there is one), registers, spill bytes
+    (stores + loads) and static shared memory bytes."""
+    rows, cur = [], None
+    for ln in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            cur = {"name": m.group(1), "spill_bytes": 0}
+            rows.append(cur)
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers",
+                                                 ln)):
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["name"] for r in rows), capture_output=True, text=True,
+            timeout=60, check=True).stdout.splitlines()
+        for r, name in zip(rows, names):
+            short = re.search(r"(\w+<[^()]*>)\(", name)
+            r["name"] = short.group(1) if short else name
+    return rows
+
+
 def phase_build():
+    """Builds every kernel; logs the ptxas lines of each and, for the two
+    LM kernels, registers, spills and shared memory per instantiation.
+    selective_scan must spill nothing."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -303,6 +342,22 @@ def phase_build():
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: {info['seconds']:.2f} s cached={info['cached']} "
             + " | ".join(regs))
+    report = {}
+    for name in LM_ARCHS.values():
+        report[name] = ptxas_report(_build.BUILD_LOG[name]["ptxas"])
+        require(report[name], f"no ptxas report for {name}")
+        for r in report[name]:
+            log(f"  ptxas {r['name']}: {r['registers']} registers, "
+                f"{r['spill_bytes']} spill bytes, {r['smem_bytes']} bytes "
+                "static shared memory")
+    require(all(r["spill_bytes"] == 0 for r in report["selective_scan"]),
+            f"selective_scan spills: {report['selective_scan']}")
+    # the bf16 attention kernel's shared memory is dynamic: a Q tile and two
+    # stages of K and V tiles of 64 rows, the barriers and 1 KB to align
+    log("  flash_attention_wgmma dynamic shared memory per block: " + ", ".join(
+        f"hd {hd}: {64 * hd * 2 * 5 + 64 + 1024} bytes"
+        for hd in (16, 32, 64, 128)))
+    return report
 
 
 def phase_kernels(dev):
@@ -877,10 +932,13 @@ def rules_split(e, amr):
 
 
 def log_kernel(name, e):
+    vs_library = ("" if e["library_ms"] is None else
+                  f", kernel/library {e['ms'] / e['library_ms']:.2f}")
     log(f"{name}: device ms per launch: kernel {e['ms']:.5f}, plain "
         f"{e['plain_ms']:.5f}, library {e['library_ms']}, bound "
         f"{e['bound_ms']:.6f} ({e['bound_by']}), kernel/bound "
-        f"{e['ms'] / e['bound_ms']:.1f}; ms per call from the host: kernel "
+        f"{e['ms'] / e['bound_ms']:.1f}{vs_library}; ms per call from the "
+        f"host: kernel "
         f"{e['call_ms']:.5f}, plain {e['plain_call_ms']:.5f}, library "
         f"{e.get('library_call_ms')}")
 
@@ -1168,7 +1226,7 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     kern = phase_kernels(dev)
     kern["rule_stats"] = kernel_rule_stats(dev)
     kern["selective_scan"] = kernel_selective_scan(dev)
@@ -1210,6 +1268,7 @@ def main():
     log(f"paths: {json.dumps(paths)}")
     log(f"rules: {json.dumps(rules)}")
     log(f"lm: {json.dumps(lm)}")
+    log(f"ptxas: {json.dumps(ptxas)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(smi)
     print(json.dumps({"kernels": rows}))

@@ -12,6 +12,10 @@ unchanged one is loaded as it is.  No ``--use_fast_math``: it would turn
 ``log2f`` into an approximation and flush denormals, and ``split_gain``
 would drift from its plain version.
 
+nvcc's output (``-Xptxas -v``: registers, spills and shared memory of each
+kernel) is kept beside the library as ``lib<name>-<hash>.ptxas`` and in
+``BUILD_LOG``, also for a library built earlier.
+
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises when that is not 0.  Nothing here
 touches CUDA or ``nvcc`` before the first kernel is asked for, so the CPU
@@ -69,8 +73,10 @@ def build_all() -> dict[str, ctypes.CDLL]:
         for src in todo:
             out = _target(src)
             if out.exists():
-                BUILD_LOG[src.stem] = {"seconds": 0.0, "ptxas": "",
-                                       "cached": True}
+                log = out.with_suffix(".ptxas")
+                BUILD_LOG[src.stem] = {
+                    "seconds": 0.0, "cached": True,
+                    "ptxas": log.read_text() if log.exists() else ""}
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -83,6 +89,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
                 continue
+            out.with_suffix(".ptxas").write_text(log)
             os.replace(tmp, out)
             BUILD_LOG[src.stem] = {
                 "seconds": time.perf_counter() - started, "ptxas": log,
@@ -130,6 +137,12 @@ def check_tensor(t, dtype, shape, name, device=None) -> None:
                          f"got {t.dtype} of shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned16(t):
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary (a view into another tensor can start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(t) -> int:

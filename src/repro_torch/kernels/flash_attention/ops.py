@@ -2,10 +2,13 @@
 GQA kv heads shared by their query heads.
 
 On CUDA tensors it launches the hand-written kernel of
-``csrc/flash_attention.cu`` (64 query rows of one head per block, key and
-value tiles through shared memory, float32 softmax state in registers);
-on CPU tensors it runs the plain version of ``ref.py``, which
-materializes the scores.  Any other device raises.
+``csrc/flash_attention.cu``.  bf16 runs on Hopper's tensor cores: one
+warpgroup per 64 query rows of one head, K and V tiles by TMA through a
+two-stage shared-memory ring, both products as ``wgmma`` with float32
+accumulators and the softmax state in registers.  float32 (off every
+served path) runs the products as FMAs on the CUDA cores.  On CPU tensors
+it runs the plain version of ``ref.py``, which materializes the scores.
+Any other device raises.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         raise ValueError(f"{H} query heads do not share {K} kv heads evenly")
     if B * H > 65535:
         raise ValueError(f"flash_attention takes B*H <= 65535, got {B * H}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 kernel's tensor maps take 16-byte aligned bases
+    q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     _build.check_tensor(q, q.dtype, (B, S, H, hd), "q")
     _build.check_tensor(k, q.dtype, (B, T, K, hd), "k", q.device)
     _build.check_tensor(v, q.dtype, (B, T, K, hd), "v", q.device)

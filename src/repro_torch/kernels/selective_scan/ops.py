@@ -2,9 +2,11 @@
 with the state carried in (``h0``) and out (``hT``).
 
 On CUDA tensors it launches the hand-written kernel of
-``csrc/selective_scan.cu`` (one thread per batch row and channel, the
-state in registers, time in order); on CPU tensors it runs the plain
-version of ``ref.py``.  Any other device raises.
+``csrc/selective_scan.cu`` (four lanes per batch row and channel, each
+holding a quarter of the state in registers; tiles of dt, x, B and C
+staged in shared memory by ``cp.async`` ahead of the chain; time in
+order); on CPU tensors it runs the plain version of ``ref.py``.  Any
+other device raises.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def selective_scan(dt, x, Bm, Cm, A, h0):
     _build.check_tensor(A, torch.float32, (dI, N), "A", dt.device)
     _build.check_tensor(h0, torch.float32, (B, dI, N), "h0", dt.device)
     y = torch.empty_like(dt)
-    if B * dI == 0:
+    if B * dI == 0 or c == 0:
         return y, h0.clone()
     hT = torch.empty((B, dI, N), dtype=torch.float32, device=dt.device)
     fn = _build.function("selective_scan", "selective_scan_launch", _ARGTYPES)

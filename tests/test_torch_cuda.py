@@ -214,6 +214,14 @@ def _scan_close(got, want):
     (2, 64, 256, 64, torch.float32),       # the largest state the kernel takes
     (2, 64, 256, 16, torch.bfloat16),
     (4, 2048, 8192, 16, torch.float32),    # falcon_mamba_7b prefill
+    (2, 1, 256, 16, torch.float32),        # one step
+    (2, 2047, 256, 16, torch.float32),     # L not a multiple of the tile
+    (1, 100, 200, 16, torch.float32),      # channels not a multiple of 32
+    (2, 50, 99, 8, torch.float32),         # odd channels: plain staging
+    (2, 64, 256, 1, torch.float32),        # N = 1
+    (2, 100, 320, 5, torch.bfloat16),      # N = 5 in bf16
+    (1, 2047, 320, 64, torch.bfloat16),    # the largest state in bf16
+    (2, 100, 99, 16, torch.bfloat16),      # odd channels in bf16
 ])
 def test_selective_scan_kernel_matches_plain(cuda, B, c, dI, N, dtype):
     args = _scan_inputs(B, c, dI, N, seed=c, device=cuda, dtype=dtype)
@@ -257,6 +265,13 @@ def test_selective_scan_kernel_carries_the_state(cuda):
     (2, 100, 300, 4, 2, 16, torch.float32, False, 0),        # S != T
     (2, 1000, 1000, 4, 4, 128, torch.bfloat16, True, 0),     # ragged S
     (3, 77, 77, 2, 1, 16, torch.float32, True, 32),          # ragged, window
+    (2, 512, 512, 8, 2, 64, torch.bfloat16, True, 0),        # GQA
+    (2, 512, 512, 4, 2, 64, torch.bfloat16, True, 128),      # window
+    (2, 300, 300, 4, 4, 32, torch.bfloat16, False, 0),       # non-causal
+    (2, 100, 300, 4, 2, 16, torch.bfloat16, False, 0),       # S != T
+    (3, 77, 77, 2, 1, 16, torch.bfloat16, True, 32),         # ragged, window
+    (2, 300, 100, 4, 2, 32, torch.bfloat16, True, 0),        # S > T
+    (2, 1, 1, 4, 4, 64, torch.bfloat16, True, 0),            # one position
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, S, T, H, K, hd, dtype,
                                               causal, window):

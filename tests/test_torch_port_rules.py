@@ -5,6 +5,7 @@ the plain path only for CPU tensors, with no fallback."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -31,7 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10 and files[-1].exists()
     return files
 
@@ -79,6 +81,61 @@ def test_no_fallback_handlers_in_wrappers_or_smoke():
         handlers = [n.lineno for n in ast.walk(tree)
                     if isinstance(n, ast.ExceptHandler)]
         assert not handlers, f"{path.name} catches at lines {handlers}"
+
+
+# headers of finished kernels: a kernel of the port may lean on CUTLASS's
+# building blocks (atoms, layouts, copies), never on a library's kernel
+LIBRARY_KERNEL_HEADERS = re.compile(
+    r"^(cublas|cudnn|cusparse|cufft|flash)|cutlass/gemm/(device|kernel)/")
+
+
+def _library_kernel_includes(source):
+    """The #include targets of ``source`` that are library kernels."""
+    return [name for name in
+            re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', source, re.M)
+            if LIBRARY_KERNEL_HEADERS.search(name.lower())]
+
+
+def _library_calls(source):
+    """Uses in ``source`` of a finished attention kernel or of
+    ``torch.compile``, with their lines."""
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        name = (node.attr if isinstance(node, ast.Attribute)
+                else node.id if isinstance(node, ast.Name) else None)
+        if name == "scaled_dot_product_attention" or (
+                name == "compile" and isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "torch"):
+            bad.append((name, node.lineno))
+    return bad
+
+
+def test_library_checks_catch_what_they_name():
+    assert _library_kernel_includes(
+        '#include <cublas_v2.h>\n#include "cutlass/gemm/device/gemm.h"\n'
+        "  # include <cudnn.h>\n#include <cute/atom/mma_atom.hpp>\n"
+        "#include <cuda_bf16.h>\n") == [
+            "cublas_v2.h", "cutlass/gemm/device/gemm.h", "cudnn.h"]
+    assert [n for n, _ in _library_calls(
+        "import torch\nimport torch.nn.functional as F\n"
+        "f = torch.compile(g)\nF.scaled_dot_product_attention(q, k, v)\n"
+        "x = re.compile('a')\n")] == ["compile",
+                                      "scaled_dot_product_attention"]
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "csrc").glob("*.cu*")),
+                         ids=lambda p: p.name)
+def test_kernel_sources_include_no_library_kernel(path):
+    bad = _library_kernel_includes(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} includes {bad}"
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "kernels").glob("*/ops.py")),
+                         ids=lambda p: p.parent.name)
+def test_wrappers_call_no_library_attention_or_compile(path):
+    bad = _library_calls(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} calls {bad}"
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
