@@ -10,7 +10,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
   2. build    -- builds the hand-written kernels of src/repro_torch/csrc with
                  nvcc into the git-ignored build/ directory, and logs each
                  instantiation's registers, spill bytes and shared memory
-                 for the two LM kernels (selective_scan must not spill).
+                 for rule_stats, split_gain and the two LM kernels
+                 (selective_scan must not spill).
   3. kernels  -- each kernel against its plain PyTorch version on the card at
                  the main path's shapes, and its median time over 50 launches
                  (CUDA events) beside the plain version's, a PyTorch library
@@ -330,9 +331,9 @@ def ptxas_report(text):
 
 
 def phase_build():
-    """Builds every kernel; logs the ptxas lines of each and, for the two
-    LM kernels, registers, spills and shared memory per instantiation.
-    selective_scan must spill nothing."""
+    """Builds every kernel; logs the ptxas lines of each and, for
+    rule_stats, split_gain and the two LM kernels, registers, spills and
+    shared memory per instantiation.  selective_scan must spill nothing."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -343,7 +344,7 @@ def phase_build():
         log(f"  {name}: {info['seconds']:.2f} s cached={info['cached']} "
             + " | ".join(regs))
     report = {}
-    for name in LM_ARCHS.values():
+    for name in ("rule_stats", "split_gain", *LM_ARCHS.values()):
         report[name] = ptxas_report(_build.BUILD_LOG[name]["ptxas"])
         require(report[name], f"no ptxas report for {name}")
         for r in report[name]:
@@ -352,6 +353,11 @@ def phase_build():
                 "static shared memory")
     require(all(r["spill_bytes"] == 0 for r in report["selective_scan"]),
             f"selective_scan spills: {report['selective_scan']}")
+    # split_gain's thread per (row, bin) takes dynamic shared memory: 256 /
+    # bins rows of bins x C counts and their total's entropy (the full
+    # fallback's thread per row takes none)
+    log(f"  split_gain dynamic shared memory per block at [16, {M_ATTRS}, "
+        f"{BINS}, {C}]: {256 // BINS * (BINS * C + 1) * 4} bytes")
     # the bf16 attention kernel's shared memory is dynamic: a Q tile and two
     # stages of K and V tiles of 64 rows, the barriers and 1 KB to align
     log("  flash_attention_wgmma dynamic shared memory per block: " + ", ".join(
@@ -539,7 +545,9 @@ def kernel_segment_sums(dev, rng):
     reductions (VAMR, B = 512): the per-rule sums of (1, y, |err|) over
     the 65 rows, and the two levels of the default rule's batch sum of 4
     columns (512 instances into 16 windows, 16 window sums into one).
-    Exact against the plain version; device ms of each launch."""
+    Exact against the plain version; device ms of each launch beside its
+    bound and ``index_add_``'s on the same tensors (a scratch row takes
+    the dropped instances)."""
     import numpy as np
     import torch
     from repro_torch.kernels.rule_stats.ops import segment_sum
@@ -566,10 +574,23 @@ def kernel_segment_sums(dev, rng):
         require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                 f"segment_sum {what} differs from its plain version")
         work = zeros.clone()
-        out[what] = timed(lambda: segment_sum(work, seg, xb, vals))
+        e = timed(lambda: segment_sum(work, seg, xb, vals))
+        keep = (seg >= 0) & (seg < rows)
+        idx = torch.where(keep, seg, rows).long()
+        scratch = torch.zeros((rows + 1, k), device=dev)
+        lt = timed(lambda: scratch.index_add_(0, idx, vals))
+        # out read and written, seg, xbin and vals read; one add per value
+        moved = 2 * zeros.numel() * 4 + 2 * n * 4 + vals.numel() * 4
+        bound_ms, bound_by = bound(moved, int(keep.sum()) * k)
+        e.update(library_ms=lt["ms"], library_call_ms=lt["call_ms"],
+                 bytes=moved, ops=int(keep.sum()) * k, bound_ms=bound_ms,
+                 bound_by=bound_by)
+        out[what] = e
         log(f"rule_stats as segment_sum, {what} [{rows},1,1,{k}] B={n}: "
-            f"exact; device ms {out[what]['ms']:.5f}, call ms "
-            f"{out[what]['call_ms']:.5f}")
+            f"exact; device ms {e['ms']:.5f}, library (index_add_) "
+            f"{e['library_ms']:.5f}, bound {bound_ms:.6f} ({bound_by}), "
+            f"kernel/bound {e['ms'] / bound_ms:.1f}; call ms "
+            f"{e['call_ms']:.5f}")
     return out
 
 
@@ -673,6 +694,16 @@ def profile_steps(learner, state, batches, kernel=None, order=()):
         f"{sum(r[1] for r in rows) / n:.1f} device ops/step")
     for us, count, key in rows[:10]:
         log(f"  {us / n:9.2f} us/step  {count / n:5.2f}/step  {key[:90]}")
+    # the port's own kernels, in or out of the ten above
+    ours = {}
+    for us, count, key in rows:
+        m = re.search(r"(\w+_(?:kernel|wgmma)\w*(?:<[^(]*>)?)\(", key)
+        if m and m.group(1).startswith(
+                (*VHT_KERNELS, "rule_stats", *LM_ARCHS.values())):
+            ours[m.group(1)] = {"us_per_step": us / n, "per_step": count / n}
+    log("  the port's kernels per step: " + ", ".join(
+        f"{k} {v['us_per_step']:.2f} us ({v['per_step']:.2f} launches)"
+        for k, v in ours.items()))
     split = {}
     if kernel is not None:
         runs = sorted((e.time_range.start, e.time_range.elapsed_us())
@@ -685,7 +716,7 @@ def profile_steps(learner, state, batches, kernel=None, order=()):
                  for k, what in enumerate(order)}
         log(f"  {kernel} per step by launch: " + ", ".join(
             f"{what} {us:.2f} us" for what, us in split.items()))
-    return {"split": split,
+    return {"split": split, "port_kernels": ours,
             "wall_us_per_step": wall_us / n, "busy_us_per_step": busy_us / n,
             "busy_share": busy_us / wall_us,
             "device_ops_per_step": sum(r[1] for r in rows) / n}

@@ -4,89 +4,276 @@
 //   stats[r, j, b, c] += sum_i 1[seg_i = r] 1[xbin_ij = b] mom[i, c],
 //
 // where instances with seg_i outside [0, R) and bins outside [0, bins) are
-// dropped (AMRules passes seg = R, one past the last row, to discard).
+// dropped (AMRules passes seg = R, one past the last row, to discard).  The
+// same kernel sums AMRules' float reductions (the wrapper's segment_sum:
+// m = 1, bins = 1, the rule or the XLA window as the row).
 //
-// Replaces src/repro/kernels/rule_stats/kernel.py::rule_stats_pallas (the
-// `_kernel` body), which wrote the scatter as a one-hot [R, B] x
-// [B, ja*bins*C] matmul on the TPU's matrix unit.  That sums each cell in
-// the matrix unit's order.  Here the sums are order-exact instead: every
-// cell starts from its old value and adds its instances' moments in
-// ascending instance order, one __fadd_rn at a time.  That is the order of
-// XLA's CPU scatter (the JAX package's default off the TPU) and of the
-// plain version in kernels/rule_stats/ref.py, so the kernel, the plain
-// version and the JAX package agree bit for bit, and two runs of the same
-// stream learn the same rules.  No atomics: a float atomicAdd sums in
-// whatever order the threads arrive.
+// Replaces src/repro/kernels/rule_stats/kernel.py::rule_stats_pallas
+// (kernel.py:57, its pallas_call at :71), which wrote the scatter as a
+// one-hot [R, B] x [B, ja*bins*C] matmul on the TPU's matrix unit.  That
+// sums each cell in the matrix unit's order.  Here the sums are order-exact
+// instead: every cell starts from its old value and adds its instances'
+// moments in ascending instance order, one __fadd_rn at a time.  That is
+// the order of XLA's CPU scatter (the JAX package's default off the TPU)
+// and of the plain version in kernels/rule_stats/ref.py, so the kernel, the
+// plain version and the JAX package agree bit for bit, and two runs of the
+// same stream learn the same rules.  No float atomics (they sum in whatever
+// order the threads arrive) and no matrix product.
 //
-// Design: one thread per (attribute j, row r, bin b) cell, all C moments of
-// the cell in registers; blockIdx.y is the attribute, blockIdx.x a group of
-// CELLS cells of it.  The block stages the instances in tiles of TILE in
-// shared memory: the cell key seg_i * bins + xbin_ij (-1 when dropped) and
-// the moments.  Every thread then walks the tile in order and adds the
-// moments where the key is its own; all threads of a warp read the same
-// key, a shared-memory broadcast.
+// What bounds it: the function reads each input once and reads and writes
+// stats once, 0.59 MB at the AMRules main path's [65, 40, 8, 3] and
+// B = 512, about 0.18 us at 3.35 TB/s, and does B * m * C float adds; the
+// reductions move a few KB.  Neither is near: the kernel is bound by its
+// launch and by the latency of its dependent steps (two trips to device
+// memory, the ranking's warp steps, four barriers), and by the longest
+// chain of adds, the fullest cell's instances in order, which no design
+// can cut.
 //
-// What bounds it: the function needs each input read once and stats read
-// and written once, 0.59 MB at the AMRules main path's [65, 40, 8, 3] and
-// B = 512, about 0.18 us at 3.35 TB/s, and only B * m * C float adds.  The
-// kernel does far more than that: every thread walks all B keys, one
-// dependent shared-memory read after another, so R * m * bins * B compares
-// (10.6 M here) on about 7 warps per SM.  It is bound by that serial walk
-// and by its launch, some microseconds; making it fast (sorting the
-// instances by cell first, say) is later work.  Being exact comes first.
+// Design: a block takes one attribute j and a range of up to 256 of its
+// (row, bin) cells, one per thread (blockIdx.y: j, blockIdx.x: the range;
+// 120 blocks at the main path's shape, one for each reduction).  For each
+// tile of TILE instances it
+//  1. stages seg, the attribute's xbin column and mom in shared memory by
+//     cp.async (16-byte copies of seg and mom, 4-byte copies of the
+//     column);
+//  2. gives each instance its local cell, or none, and its rank among the
+//     instances of that cell: each warp takes a contiguous run of
+//     instances 32 at a time, in order, and __match_any_sync ranks the
+//     lanes of one key inside the step, after the warp's earlier steps;
+//  3. scans the cells' counts and prefixes each cell's per-warp counts, so
+//     that a stable counting sort puts each cell's instances in one list,
+//     in instance order, each warp placing its own run;
+//  4. lets each cell's thread walk its own list, its C sums in registers,
+//     reading eight list entries ahead of their adds.
+// Lists carry across tiles in order, so B is not limited.  Work per launch
+// is about B * m instances ranked plus the cells, not cells x B compares.
+// A batch of at most SMALL instances (the batch sum's last level, 16
+// window sums) skips all that: each cell's thread reads every instance
+// from device memory in order, with no staging or barrier.
+//
+// Blocks of 2 or 4 attributes, whose xbin rows come in one coalesced 8- or
+// 16-byte copy per instance, were measured slower (tools/kernel_ab.py on
+// an NVIDIA H100 80GB HBM3 at 700 W: 0.0057 and 0.0068 ms against 0.0053
+// ms at the main path's shape): each block then ranks 2 or 4 times the
+// instances in as many warp steps, while the strided column, 80 KB for
+// the whole batch, comes from L2 either way.
+//
+// Measured the same way after that (device ms; first version in
+// brackets): moment statistics 0.0049 (0.0206), per-rule sums 0.0048
+// (0.0331), batch sum levels 0.0047 (0.0505) and 0.0032 (0.0038).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int CELLS = 256;       // threads per block: one cell each
-constexpr int TILE = 1024;       // instances staged per pass
-constexpr int MAX_MOMENTS = 8;   // the largest C the kernel takes
+constexpr int THREADS = 256;            // threads per block
+constexpr int WARPS = THREADS / 32;
+constexpr int CELLS = THREADS;          // cells per block, one per thread
+constexpr int TILE = 512;               // instances staged per pass
+constexpr int KEY_BITS = 8;             // a local cell is < CELLS = 2^8
+constexpr int SMALL = 64;               // a batch every cell reads whole
 
-__global__ void __launch_bounds__(CELLS)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// n 4-byte words from src to dst (16-byte aligned): 16-byte copies when
+// src is aligned too, the tail word by word
+__device__ __forceinline__ void stage_words(void* dst, const void* src,
+                                            int n) {
+  const uint32_t* s = static_cast<const uint32_t*>(src);
+  uint32_t* d = static_cast<uint32_t*>(dst);
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+    head = n & ~3;
+    for (int k = 4 * threadIdx.x; k < head; k += 4 * THREADS)
+      cp_async16(d + k, s + k);
+  }
+  for (int k = head + threadIdx.x; k < n; k += THREADS) cp_async4(d + k, s + k);
+}
+
+// acc += the moments of the listed instances, in list order; eight list
+// entries are read ahead of their adds
+template <int C>
+__device__ __forceinline__ void walk(float (&acc)[C], const int* list, int n,
+                                     const float* mom) {
+  int q = 0;
+  for (; q + 8 <= n; q += 8) {
+    float v[8][C];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float* src = mom + list[q + k] * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[k][c] = src[c];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], v[k][c]);
+    }
+  }
+  for (; q < n; ++q) {
+    const float* src = mom + list[q] * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], src[c]);
+  }
+}
+
+// blockIdx.y: the attribute j; blockIdx.x: its cells [c0, c0 + cr)
+template <int C>
+__global__ void __launch_bounds__(THREADS)
 rule_stats_kernel(float* __restrict__ stats, const int* __restrict__ seg,
                   const int* __restrict__ xbin, const float* __restrict__ mom,
-                  int R, int m, int bins, int C, int B) {
-  __shared__ int key[TILE];
-  __shared__ float val[TILE * MAX_MOMENTS];
+                  int R, int m, int bins, int B, int cr) {
+  __shared__ __align__(16) int s_seg[TILE];
+  __shared__ __align__(16) int s_ent[TILE];     // xbin, then (rank, cell)
+  __shared__ __align__(16) float s_mom[TILE * C];
+  __shared__ int s_sorted[TILE];                // tile instances, by cell
+  __shared__ int s_wcnt[WARPS][CELLS];          // per warp and cell
+  __shared__ int s_wsum[WARPS];
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j = blockIdx.y;
-  const int cell = blockIdx.x * CELLS + threadIdx.x;    // r * bins + b
-  const bool mine = cell < R * bins;
+  const int c0 = blockIdx.x * cr;               // first (row, bin) cell
+  const int* xj = xbin + j;                     // column j, stride m
+
+  // this thread's cell, c0 + tid, and its old sums
+  const int cell_t = c0 + tid;
+  const bool mine = tid < cr && cell_t < R * bins;
+  float acc[C];
   float* out = nullptr;
-  float acc[MAX_MOMENTS];
   if (mine) {
-    const int r = cell / bins, b = cell - r * bins;
+    const int r = cell_t / bins, b = cell_t - r * bins;
     out = stats + (((size_t)r * m + j) * bins + b) * C;
 #pragma unroll
-    for (int c = 0; c < MAX_MOMENTS; ++c) acc[c] = c < C ? out[c] : 0.0f;
+    for (int c = 0; c < C; ++c) acc[c] = out[c];
   }
+
+  if (B <= SMALL) {
+    // a batch this small: each cell's thread reads all the instances from
+    // device memory, in order; no staging, sort or barrier pays for itself
+    // here.  The loads do not wait on the adds, so they are all in flight
+    // at once.
+    if (mine) {
+      for (int i = 0; i < B; ++i) {
+        const int s = seg[i], xb = xj[(size_t)i * m];
+        const bool hit = s >= 0 && s < R && xb >= 0 && xb < bins &&
+                         s * bins + xb == cell_t;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float v = mom[(size_t)i * C + c];
+          if (hit) acc[c] = __fadd_rn(acc[c], v);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[c] = acc[c];
+    }
+    return;
+  }
+
   for (int base = 0; base < B; base += TILE) {
     const int n = min(TILE, B - base);
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const int i = base + t;
-      const int s = seg[i];
-      const int xb = xbin[(size_t)i * m + j];
-      key[t] = (s >= 0 && s < R && xb >= 0 && xb < bins) ? s * bins + xb : -1;
-    }
-    for (int t = threadIdx.x; t < n * C; t += blockDim.x)
-      val[t] = mom[(size_t)base * C + t];
+    // 1. stage the tile
+    stage_words(s_seg, seg + base, n);
+    stage_words(s_mom, mom + (size_t)base * C, n * C);
+    for (int i = tid; i < n; i += THREADS)
+      cp_async4(&s_ent[i], xj + (size_t)(base + i) * m);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int k = lane; k < CELLS; k += 32) s_wcnt[warp][k] = 0;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    if (mine) {
-      for (int t = 0; t < n; ++t) {
-        if (key[t] != cell) continue;
-#pragma unroll
-        for (int c = 0; c < MAX_MOMENTS; ++c)
-          if (c < C) acc[c] = __fadd_rn(acc[c], val[t * C + c]);
+
+    // 2. each instance's local cell and its rank in it, warp by warp in
+    // instance order; -1 when it is dropped or another block's
+    const int per_warp = (n + 32 * WARPS - 1) / (32 * WARPS) * 32;
+    const int i_lo = warp * per_warp, i_hi = min(n, i_lo + per_warp);
+    for (int i0 = i_lo; i0 < i_hi; i0 += 32) {
+      const int i = i0 + lane;
+      int key = -1;
+      if (i < i_hi) {
+        const int s = s_seg[i], xb = s_ent[i];
+        if (s >= 0 && s < R && xb >= 0 && xb < bins) {
+          const int cell = s * bins + xb - c0;
+          if (cell >= 0 && cell < cr) key = cell;
+        }
       }
+      const unsigned same = __match_any_sync(0xffffffffu, key);
+      const unsigned before = same & ((1u << lane) - 1u);
+      int packed = -1;
+      if (key >= 0)
+        packed = ((s_wcnt[warp][key] + __popc(before)) << KEY_BITS) | key;
+      __syncwarp();
+      if (key >= 0 && before == 0) s_wcnt[warp][key] += __popc(same);
+      if (i < i_hi) s_ent[i] = packed;
+      __syncwarp();
     }
     __syncthreads();
+
+    // 3. each cell's count, and its list's start: the cells' counts
+    // scanned; then each warp's place in each list, its start plus the
+    // earlier warps' counts of the cell
+    int count = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) count += s_wcnt[w][tid];
+    int incl = count;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) s_wsum[warp] = incl;
+    __syncthreads();
+    int start = incl - count;
+    for (int w = 0; w < warp; ++w) start += s_wsum[w];
+    int place = start;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int v = s_wcnt[w][tid];
+      s_wcnt[w][tid] = place;
+      place += v;
+    }
+    __syncthreads();
+    // each warp puts its own run of instances in place
+    for (int i = i_lo + lane; i < i_hi; i += 32) {
+      const int p = s_ent[i];
+      if (p >= 0)
+        s_sorted[s_wcnt[warp][p & ((1 << KEY_BITS) - 1)] + (p >> KEY_BITS)] =
+            i;
+    }
+    __syncthreads();
+
+    // 4. each cell's thread adds its own list, in instance order
+    if (mine) walk<C>(acc, s_sorted + start, count, s_mom);
+    if (base + TILE < B) __syncthreads();   // the buffers are staged again
   }
   if (mine) {
 #pragma unroll
-    for (int c = 0; c < MAX_MOMENTS; ++c)
-      if (c < C) out[c] = acc[c];
+    for (int c = 0; c < C; ++c) out[c] = acc[c];
   }
+}
+
+template <int C>
+void launch(float* stats, const int* seg, const int* xbin, const float* mom,
+            int R, int m, int bins, int B, cudaStream_t stream) {
+  // as few ranges of an attribute's R * bins cells as give each thread at
+  // most one cell
+  const int per_attr = R * bins;
+  const int ranges = (per_attr + CELLS - 1) / CELLS;
+  const int cr = (per_attr + ranges - 1) / ranges;
+  const dim3 grid((unsigned)ranges, (unsigned)m);
+  rule_stats_kernel<C><<<grid, THREADS, 0, stream>>>(stats, seg, xbin, mom, R,
+                                                     m, bins, B, cr);
 }
 
 }  // namespace
@@ -94,9 +281,21 @@ rule_stats_kernel(float* __restrict__ stats, const int* __restrict__ seg,
 extern "C" int rule_stats_launch(void* stats, const void* seg,
                                  const void* xbin, const void* mom, int R,
                                  int m, int bins, int C, int B, void* stream) {
-  const dim3 grid((unsigned)((R * bins + CELLS - 1) / CELLS), (unsigned)m);
-  rule_stats_kernel<<<grid, CELLS, 0, (cudaStream_t)stream>>>(
-      (float*)stats, (const int*)seg, (const int*)xbin, (const float*)mom, R,
-      m, bins, C, B);
+  float* s = (float*)stats;
+  const int* sg = (const int*)seg;
+  const int* xb = (const int*)xbin;
+  const float* mo = (const float*)mom;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+    case 1: launch<1>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 2: launch<2>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 3: launch<3>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 4: launch<4>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 5: launch<5>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 6: launch<6>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 7: launch<7>(s, sg, xb, mo, R, m, bins, B, st); break;
+    case 8: launch<8>(s, sg, xb, mo, R, m, bins, B, st); break;
+    default: return (int)cudaErrorInvalidValue;   // C is 1 to 8
+  }
   return (int)cudaGetLastError();
 }

@@ -20,11 +20,12 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
                                                 rule_stats_scatter,
-                                                rule_stats_update)
+                                                rule_stats_update,
+                                                segment_sum)
 from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
 from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
-from repro_torch.kernels.split_gain.ops import split_gain
+from repro_torch.kernels.split_gain.ops import NEG, split_gain
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.tree_route.ops import tree_route
 from repro_torch.kernels.tree_route.ref import tree_route_ref
@@ -106,6 +107,59 @@ def test_split_gain_kernel_matches_plain(cuda, N):
     assert launches()["split_gain"] == 1
 
 
+def _gain_inputs(N, m, nb, C, seed):
+    """Sparse integer counts with whole rows of zeros and rows of one
+    class mixed in."""
+    rng = np.random.RandomState(seed)
+    stats = rng.randint(0, 9, (N, m, nb, C)).astype(np.float32)
+    stats *= rng.uniform(size=stats.shape) < 0.5
+    rows = stats.reshape(N * m, nb, C)
+    kind = rng.randint(0, 4, N * m)
+    rows[kind == 0] = 0.0
+    one = np.flatnonzero(kind == 1)
+    rows[one] *= np.eye(C, dtype=np.float32)[rng.randint(0, C, one.size)][
+        :, None, :]
+    return stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [2, 8, 16, 64])
+@pytest.mark.parametrize("C", [2, 3, 5, 32])
+def test_split_gain_kernel_edge_shapes(cuda, nb, C):
+    """bins 2 to 64 and C 2 to 32 on 7 x 37 rows (no whole number of
+    blocks), with rows of zeros and one-class rows: the NEG mask equal,
+    the gains within atol = rtol = 1e-4 of the plain version."""
+    stats = _t(_gain_inputs(7, 37, nb, C, seed=nb * C)).to(cuda)
+    got, want = split_gain(stats), split_gain_ref(stats)
+    assert torch.equal(got == NEG, want == NEG)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert launches()["split_gain"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,m,nb,C", [(160, 1000, 8, 3), (140, 1000, 4, 5),
+                                      (136, 1000, 2, 32)])
+def test_split_gain_kernel_many_rows(cuda, N, m, nb, C):
+    """Enough rows for one thread per row (rows of up to 47 words), and a
+    wider row that takes a thread per (row, bin) at any row count."""
+    stats = _t(_gain_inputs(N, m, nb, C, seed=N + C)).to(cuda)
+    got, want = split_gain(stats), split_gain_ref(stats)
+    assert torch.equal(got == NEG, want == NEG)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_gain_kernel_unaligned_rows(cuda):
+    """Rows of 2 x 3 counts (24 bytes) from a view one row in: blocks
+    start off a 16-byte boundary and take the 4-byte copies."""
+    stats = _t(_gain_inputs(9, 50, 2, 3, seed=4)).to(cuda)
+    view = stats.view(-1, 2, 3)[1:].view(-1, 1, 2, 3)
+    assert view.data_ptr() % 16 != 0
+    got, want = split_gain(view), split_gain_ref(view)
+    assert torch.equal(got == NEG, want == NEG)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -151,6 +205,85 @@ def test_rule_stats_default_rule_path_and_batch_sum_match_plain(cuda):
     # version's), two levels of windows for each batch sum
     assert launches()["rule_stats"] == 1
     assert launches()["segment_sum"] == 2 * 2
+
+
+def _rule_case(R, m, nb, C, B, kind, seed):
+    """"random" rows in [0, R + 2] (R and past it: dropped) and bins in
+    [-1, nb] (the ends dropped); "skewed" seven in ten instances in the
+    last row, as AMRules' default rule takes most of a batch; "one-cell"
+    every instance in row 3 and bin nb - 1; "discard" every row R or past
+    it.  The same cases as tests/test_torch_kernels.py's, which holds the
+    plain version to the JAX package on them."""
+    rng = np.random.RandomState(seed)
+    stats = (rng.uniform(size=(R, m, nb, C)) * 5).astype(np.float32)
+    seg = rng.randint(0, R + 3, B)
+    xbin = rng.randint(-1, nb + 1, (B, m))
+    if kind == "skewed":
+        seg = np.where(rng.uniform(size=B) < 0.7, R - 1, rng.randint(0, R, B))
+        xbin = rng.randint(0, nb, (B, m))
+    elif kind == "one-cell":
+        seg, xbin = np.full(B, min(3, R - 1)), np.full((B, m), nb - 1)
+    elif kind == "discard":
+        seg = rng.choice([R, R + 1, R + 7], B)
+    mom = (rng.randn(B, C) * 2).astype(np.float32)
+    return stats, seg.astype(np.int32), xbin.astype(np.int32), mom
+
+
+RULE_CASES = [(65, 4, 8, 3, 512, "one-cell"), (65, 4, 8, 3, 512, "discard"),
+              (65, 40, 8, 3, 1, "random"), (16, 12, 8, 3, 2049, "skewed"),
+              (1, 3, 4, 3, 2049, "one-cell"), (300, 3, 16, 1, 256, "random"),
+              (33, 5, 8, 8, 300, "random"), (65, 40, 8, 3, 512, "skewed"),
+              (65, 13, 8, 3, 510, "random")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,m,nb,C,B,kind", RULE_CASES)
+def test_rule_stats_kernel_bit_identical_at_edge_cases(cuda, R, m, nb, C, B,
+                                                       kind):
+    """One cell, the discard row and past it, B = 1, lists that carry
+    across tiles (B = 2049), more cells than one block ([300, 3, 16, 1]),
+    C = 1 and 8, an m that is not a multiple of 4 (4-byte copies)."""
+    args = [_t(a).to(cuda) for a in _rule_case(R, m, nb, C, B, kind,
+                                               seed=R + B + C)]
+    stats, rest = args[0], args[1:]
+    out = rule_stats_scatter(stats.clone(), *rest)
+    want = rule_stats_scatter_ref(stats.clone(), *rest)
+    assert torch.equal(_bits(out), _bits(want))
+    assert launches()["rule_stats"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,C,B,kind", [
+    (65, 3, 512, "random"), (65, 3, 512, "skewed"), (65, 3, 512, "one-cell"),
+    (16, 4, 512, "windows"), (1, 4, 16, "windows"), (66, 3, 2049, "skewed")])
+def test_segment_sum_kernel_bit_identical(cuda, rows, C, B, kind):
+    """The AMRules reductions through segment_sum: the per-rule sums
+    [65, 1, 1, 3] and the batch sum's levels [16, 1, 1, 4] and
+    [1, 1, 1, 4] with their window ids, from zeros as AMRules calls them."""
+    from repro_torch.kernels.rule_stats.ref import xla_windows
+    _, seg, _, vals = _rule_case(rows, 1, 1, C, B, kind, seed=rows * C + B)
+    seg, vals = _t(seg).to(cuda), _t(vals).to(cuda)
+    if kind == "windows":       # level 1: 512 into 16; level 2: 16 into 1
+        seg, = [ids for ids, _, n in xla_windows((512,), cuda) if n == rows]
+    xb = torch.zeros((B, 1), dtype=torch.int32, device=cuda)
+    zeros = torch.zeros((rows, 1, 1, C), device=cuda)
+    out = segment_sum(zeros.clone(), seg, xb, vals)
+    want = rule_stats_scatter_ref(zeros.clone(), seg, xb, vals)
+    assert torch.equal(_bits(out), _bits(want))
+    assert launches()["segment_sum"] == 1
+
+
+@pytest.mark.cuda
+def test_rule_stats_kernel_unaligned_inputs(cuda):
+    """Inputs that start off a 16-byte boundary (views one row in) take
+    the 4-byte copies and give the same bits."""
+    stats, seg, xbin, mom = _rule_case(65, 40, 8, 3, 513, "random", seed=9)
+    stats = _t(stats).to(cuda)
+    seg, xbin, mom = (_t(a).to(cuda)[1:] for a in (seg, xbin, mom))
+    assert mom.data_ptr() % 16 != 0 and seg.data_ptr() % 16 != 0
+    out = rule_stats_scatter(stats.clone(), seg, xbin, mom)
+    want = rule_stats_scatter_ref(stats.clone(), seg, xbin, mom)
+    assert torch.equal(_bits(out), _bits(want))
 
 
 @pytest.mark.cuda

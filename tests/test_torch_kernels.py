@@ -137,6 +137,37 @@ def test_split_gain_empty_stats_invalid():
     assert float(g.max()) <= -1e29
 
 
+def _gain_inputs(N, m, nb, C, seed):
+    """Sparse integer counts with whole rows of zeros and rows of one
+    class mixed in, as tests/test_torch_cuda.py holds the kernel to."""
+    rng = np.random.RandomState(seed)
+    stats = rng.randint(0, 9, (N, m, nb, C)).astype(np.float32)
+    stats *= rng.uniform(size=stats.shape) < 0.5
+    rows = stats.reshape(N * m, nb, C)
+    kind = rng.randint(0, 4, N * m)
+    rows[kind == 0] = 0.0
+    one = np.flatnonzero(kind == 1)
+    rows[one] *= np.eye(C, dtype=np.float32)[rng.randint(0, C, one.size)][
+        :, None, :]
+    return stats
+
+
+@pytest.mark.parametrize("N,m,nb,C", [(5, 7, 2, 2), (3, 11, 16, 3),
+                                      (4, 9, 64, 5), (2, 13, 8, 32),
+                                      (7, 5, 64, 32)])
+def test_split_gain_plain_matches_jax_at_the_kernels_card_shapes(N, m, nb, C):
+    """bins 2 to 64, C 2 to 32, row counts that fill no whole block of the
+    card's kernel, rows of zeros and one-class rows: the NEG mask equal,
+    the gains within the tolerance above."""
+    stats = _gain_inputs(N, m, nb, C, seed=N * nb + C)
+    out = split_gain(_t(stats)).numpy()
+    for want in (jax_split_gain_ref(jnp.asarray(stats)),
+                 jax_split_gain(jnp.asarray(stats), impl="pallas")):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(out == NEG, want == NEG)
+        np.testing.assert_allclose(out, want, atol=1e-4, rtol=1e-4)
+
+
 # ------------------------------ tree_route ----------------------------------
 
 def random_trees(M, N, m, nb, seed):
@@ -262,6 +293,48 @@ def test_rule_stats_drops_rows_and_bins_out_of_range():
     for impl in ("segment", "onehot"):
         out = rule_stats_update(stats.clone(), seg, xbin, mom, impl=impl)
         torch.testing.assert_close(out, stats, rtol=0, atol=0)
+
+
+def _rule_case(R, m, nb, C, B, kind, seed):
+    """Inputs of the card's rule_stats cases (tests/test_torch_cuda.py):
+    "random" rows in [0, R + 2] (R and past it: dropped) and bins in
+    [-1, nb] (the ends dropped); "skewed" seven in ten instances in the
+    last row, as AMRules' default rule takes most of a batch; "one-cell"
+    every instance in row 3 and bin nb - 1; "discard" every row R or past
+    it."""
+    rng = np.random.RandomState(seed)
+    stats = (rng.uniform(size=(R, m, nb, C)) * 5).astype(np.float32)
+    seg = rng.randint(0, R + 3, B)
+    xbin = rng.randint(-1, nb + 1, (B, m))
+    if kind == "skewed":
+        seg = np.where(rng.uniform(size=B) < 0.7, R - 1, rng.randint(0, R, B))
+        xbin = rng.randint(0, nb, (B, m))
+    elif kind == "one-cell":
+        seg, xbin = np.full(B, min(3, R - 1)), np.full((B, m), nb - 1)
+    elif kind == "discard":
+        seg = rng.choice([R, R + 1, R + 7], B)
+    mom = (rng.randn(B, C) * 2).astype(np.float32)
+    return stats, seg.astype(np.int32), xbin.astype(np.int32), mom
+
+
+RULE_CASES = [(65, 4, 8, 3, 512, "one-cell"), (65, 4, 8, 3, 512, "discard"),
+              (65, 40, 8, 3, 1, "random"), (16, 12, 8, 3, 2049, "skewed"),
+              (1, 3, 4, 3, 2049, "one-cell"), (300, 3, 16, 1, 256, "random"),
+              (33, 5, 8, 8, 300, "random"), (65, 1, 1, 3, 512, "skewed")]
+
+
+@pytest.mark.parametrize("R,m,nb,C,B,kind", RULE_CASES)
+def test_rule_stats_plain_bit_identical_to_jax_at_the_kernels_card_cases(
+        R, m, nb, C, B, kind):
+    """The cases the card's kernel is held to: one cell, the discard row,
+    B = 1, more instances than one tile (2049), more cells than one block
+    ([300, 3, 16, 1]), C = 1 and 8, the per-rule sums' shape; bit for bit
+    the JAX package's segment path."""
+    stats, seg, xbin, mom = _rule_case(R, m, nb, C, B, kind, seed=R + B + C)
+    out = rule_stats_update(_t(stats), _t(seg), _t(xbin), _t(mom),
+                            impl="segment").numpy()
+    want = np.asarray(jax_rule_stats(stats, seg, xbin, mom, impl="segment"))
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("shape", [(20,), (256,), (510,), (512,), (1100,),

@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Hold this checkout's LM kernels against another checkout's on one card.
+"""Hold this checkout's kernels against another checkout's on one card.
 
-    python3 tools/kernel_ab.py OTHER [--json PATH]
+    python3 tools/kernel_ab.py OTHER [--kernels NAME ...] [--json PATH]
 
 OTHER is the root of another checkout of the repository (for example an
 unpacked ``git archive`` of the parent commit).  Both checkouts'
-``src/repro_torch/csrc/selective_scan.cu`` and ``flash_attention.cu`` are
-built with the port's nvcc flags, and both C entry points run on the same
-inputs at the LM prefill shapes of ``chip_smoke.py``:
+``src/repro_torch/csrc/<name>.cu`` are built with the port's nvcc flags
+(by default selective_scan, flash_attention, rule_stats and split_gain;
+``--kernels`` takes a subset), and both C entry points run on the same
+inputs:
 
-- selective_scan at falcon_mamba_7b's shape (B = 4, L = 2048, dI = 8192,
-  N = 16, float32): the number of final-state elements that differ bit for
-  bit, and the largest difference of y;
-- flash_attention at qwen15_4b's shape (B = 4, S = T = 2048, 20 heads of
-  128, bf16, causal): the largest difference of the outputs, each against
-  the plain version.
+- selective_scan at falcon_mamba_7b's prefill shape (B = 4, L = 2048,
+  dI = 8192, N = 16, float32): the number of final-state elements that
+  differ bit for bit, and the largest difference of y;
+- flash_attention at qwen15_4b's prefill shape (B = 4, S = T = 2048, 20
+  heads of 128, bf16, causal): the largest difference of the outputs, each
+  against the plain version;
+- rule_stats at the AMRules main path's moment statistics ([65, 40, 8, 3],
+  B = 512 and 510, rows drawn as chip_smoke.py draws them; a skewed batch
+  with seven in ten instances in the default rule's row; a batch in one
+  cell) and its three segment_sum shapes (the per-rule sums [65, 1, 1, 3],
+  the batch sum's levels [16, 1, 1, 4] and [1, 1, 1, 4]): the elements
+  that differ bit for bit from each other and from the plain version;
+- split_gain at the VHT main path's gathered tile [16, 1000, 8, 2] and
+  full fallback [255, 1000, 8, 2]: the elements that differ bit for bit,
+  and the NEG masks.
 
 Device ms per launch are taken in turns (other, this, this, other) with
-``chip_smoke.device_ms``, beside ``F.scaled_dot_product_attention``'s.
-Needs a CUDA device and nvcc; prints one JSON object as its last line.
+``chip_smoke.device_ms``, beside ``F.scaled_dot_product_attention``'s for
+attention.  Needs a CUDA device and nvcc; prints one JSON object as its
+last line.
 """
 
 from __future__ import annotations
@@ -34,20 +45,21 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("selective_scan", "flash_attention")
+KERNELS = ("selective_scan", "flash_attention", "rule_stats",
+           "split_gain")
 
 
-def build(tag, csrc):
-    """Build the LM kernels of ``csrc`` into build/kernel_ab/<tag>/, all
-    nvcc processes started together; returns {name: CDLL} and the ptxas
-    lines of each."""
+def build(tag, csrc, kernels):
+    """Build ``kernels`` of ``csrc`` into build/kernel_ab/<tag>/, all nvcc
+    processes started together; returns {name: CDLL} and the ptxas lines
+    of each."""
     from repro_torch.kernels import _build
     out = _build.BUILD_DIR.parent / "kernel_ab" / tag
     out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
          str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for name in KERNELS}
+        stderr=subprocess.STDOUT, text=True) for name in kernels}
     libs, ptxas = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -66,36 +78,30 @@ def entry(lib, symbol, argtypes):
     return fn
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("other", type=Path)
-    ap.add_argument("--json", type=Path, default=None)
-    args = ap.parse_args()
+def bits_differing(a, b):
+    """Elements of two float32 tensors that differ bit for bit."""
+    import torch
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def in_turns(runs):
+    """Device ms of each run, in turns other, this, this, other."""
+    from chip_smoke import device_ms
+    times = {"other": [], "this": []}
+    for tag in ("other", "this", "this", "other"):
+        times[tag].append(device_ms(runs[tag]))
+    return times
+
+
+def ab_selective_scan(libs, stream, smi):
     import torch
     import torch.nn.functional as F
-    if not torch.cuda.is_available():
-        sys.exit("kernel_ab.py: no CUDA device")
-    from chip_smoke import LM_B, LM_S, device_ms, max_abs_err, nvidia_smi
+    from chip_smoke import LM_B, LM_S, max_abs_err
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = nvidia_smi()
-    print(smi, flush=True)
-    libs, ptxas = {}, {}
-    for tag, root in (("other", args.other.resolve()), ("this", ROOT)):
-        libs[tag], ptxas[tag] = build(tag, root / "src" / "repro_torch" / "csrc")
-        for name in KERNELS:
-            print(f"ptxas {tag} {name}: " + " | ".join(ptxas[tag][name]),
-                  flush=True)
     dev = torch.device("cuda")
-    stream = _build.stream_of(torch.empty(1, device=dev))
-    result = {"device": torch.cuda.get_device_name(0), "smi": smi}
-
-    # selective_scan, falcon_mamba_7b's prefill shape
     Bs, S, dI, N = LM_B, LM_S, 8192, 16
     g = torch.Generator(device=dev).manual_seed(5)
 
@@ -122,22 +128,17 @@ def main():
         outs[tag] = (run, y, hT)
     y_ref, h_ref = selective_scan_ref(dt, x, Bm, Cm, A, h0)
     (run_o, y_o, h_o), (run_t, y_t, h_t) = outs["other"], outs["this"]
-    times = {"other": [], "this": []}
-    for tag in ("other", "this", "this", "other"):
-        times[tag].append(device_ms(outs[tag][0]))
+    times = in_turns({tag: outs[tag][0] for tag in outs})
     scan = {"shape": [Bs, S, dI, N], "dtype": "float32",
-            "hT_bits_differing": int((h_o.view(torch.int32)
-                                      != h_t.view(torch.int32)).sum()),
+            "hT_bits_differing": bits_differing(h_o, h_t),
             "hT_elements": h_t.numel(),
             "y_max_abs_diff": max_abs_err(y_t, y_o),
-            "y_bits_differing": int((y_o.view(torch.int32)
-                                     != y_t.view(torch.int32)).sum()),
+            "y_bits_differing": bits_differing(y_o, y_t),
             "err_vs_plain": {"other": max(max_abs_err(y_o, y_ref),
                                           max_abs_err(h_o, h_ref)),
                              "this": max(max_abs_err(y_t, y_ref),
                                          max_abs_err(h_t, h_ref))},
             "ms": times}
-    result["selective_scan"] = scan
     print(f"selective_scan {scan['shape']} f32: hT bits differing "
           f"{scan['hT_bits_differing']} of {scan['hT_elements']}; y max abs "
           f"diff {scan['y_max_abs_diff']:.3g} ({scan['y_bits_differing']} "
@@ -146,9 +147,19 @@ def main():
           flush=True)
     del dt, x, y_o, y_t, y_ref, outs
     torch.cuda.empty_cache()
+    return scan
 
-    # flash_attention, qwen15_4b's prefill shape
-    Bq, H, hd = LM_B, 20, 128
+
+def ab_flash_attention(libs, stream, smi):
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import LM_B, LM_S, device_ms, max_abs_err
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    Bq, S, H, hd = LM_B, LM_S, 20, 128
     g = torch.Generator(device=dev).manual_seed(6)
     q, k, v = (torch.randn((Bq, S, H, hd), generator=g, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -167,21 +178,183 @@ def main():
         torch.cuda.synchronize()
         outs[tag] = (run, o)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    times = {"other": [], "this": [], "sdpa": []}
-    for tag in ("other", "this", "this", "other"):
-        times[tag].append(device_ms(outs[tag][0]))
-    times["sdpa"].append(device_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)))
+    times = in_turns({tag: outs[tag][0] for tag in outs})
+    times["sdpa"] = [device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))]
     att = {"shape": [Bq, S, S, H, H, hd], "dtype": "bfloat16",
            "max_abs_diff": max_abs_err(outs["this"][1], outs["other"][1]),
            "err_vs_plain": {t: max_abs_err(outs[t][1], want)
                             for t in ("other", "this")},
            "ms": times}
-    result["flash_attention"] = att
     print(f"flash_attention {att['shape']} bf16 causal: this vs other max abs"
           f" diff {att['max_abs_diff']:.3g}; vs plain {att['err_vs_plain']};"
           f" device ms other {times['other']}, this {times['this']}, SDPA "
           f"{times['sdpa']} on {smi}", flush=True)
+    return att
+
+
+def rule_stats_cases(dev):
+    """{what: (stats, seg, xbin, mom)} of the A/B: the moment statistics as
+    chip_smoke.py draws them, a skewed batch, one cell, and the three
+    segment_sum shapes with their row ids."""
+    import numpy as np
+    import torch
+    from chip_smoke import B, BINS, MOMENTS, RULES
+    from repro_torch.kernels.rule_stats.ops import rule_moments
+    from repro_torch.kernels.rule_stats.ref import xla_windows
+
+    rng = np.random.RandomState(3)
+    R1, m = RULES + 1, 40
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    stats = t((rng.uniform(size=(R1, m, BINS, MOMENTS)) * 5)
+              .astype(np.float32))
+    cases = {}
+    for n in (B, (B // 3) * 3):
+        cases[f"moment statistics B={n}"] = (
+            stats, t(rng.randint(0, R1 + 2, n).astype(np.int32)),
+            t(rng.randint(0, BINS, (n, m)).astype(np.int32)),
+            rule_moments(t((rng.randn(n) * 2).astype(np.float32))))
+    seg = np.where(rng.uniform(size=B) < 0.7, RULES, rng.randint(0, RULES, B))
+    xbin = t(rng.randint(0, BINS, (B, m)).astype(np.int32))
+    y = t((rng.randn(B) * 2).astype(np.float32))
+    cases["moment statistics, skewed"] = (stats, t(seg.astype(np.int32)),
+                                          xbin, rule_moments(y))
+    cases["moment statistics, one cell"] = (
+        stats, t(np.full(B, 5, np.int32)), t(np.full((B, m), 2, np.int32)),
+        rule_moments(y))
+    xb = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    (ids1, _, n1), (ids2, _, n2) = xla_windows((B,), dev)
+    cases["per-rule sums"] = (
+        torch.zeros((R1, 1, 1, 3), device=dev),
+        t(rng.randint(0, R1 + 1, B).astype(np.int32)), xb,
+        t((rng.randn(B, 3) * 2).astype(np.float32)))
+    cases["batch sum level 1"] = (
+        torch.zeros((n1, 1, 1, 4), device=dev), ids1, xb,
+        t((rng.randn(B, 4) * 2).astype(np.float32)))
+    cases["batch sum level 2"] = (
+        torch.zeros((n2, 1, 1, 4), device=dev), ids2, xb[:n1],
+        t((rng.randn(n1, 4) * 2).astype(np.float32)))
+    return cases
+
+
+def ab_rule_stats(libs, stream, smi):
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rule_stats import ops as rs_ops
+    from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+
+    out = {}
+    for what, (stats, seg, xbin, mom) in rule_stats_cases(
+            torch.device("cuda")).items():
+        R, m, bins, C = stats.shape
+        n = seg.shape[0]
+        runs, got = {}, {}
+        for tag in ("other", "this"):
+            fn = entry(libs[tag]["rule_stats"], "rule_stats_launch",
+                       rs_ops._ARGTYPES)
+
+            def run(fn=fn, dst=stats.clone()):      # in place, into dst
+                _build.check(fn(dst.data_ptr(), seg.data_ptr(),
+                                xbin.data_ptr(), mom.data_ptr(), R, m, bins,
+                                C, n, stream), "rule_stats")
+                return dst
+            got[tag] = run(dst=stats.clone())       # one launch from stats
+            runs[tag] = run
+        torch.cuda.synchronize()
+        want = rule_stats_scatter_ref(stats.clone(), seg, xbin, mom)
+        e = {"shape": [R, m, bins, C], "B": n,
+             "bits_differing": bits_differing(got["other"], got["this"]),
+             "bits_differing_vs_plain": {
+                 t: bits_differing(got[t], want) for t in got},
+             "elements": want.numel(), "ms": in_turns(runs)}
+        out[what] = e
+        print(f"rule_stats {what} {e['shape']} B={n}: bits differing "
+              f"{e['bits_differing']} of {e['elements']}, vs plain "
+              f"{e['bits_differing_vs_plain']}; device ms other "
+              f"{e['ms']['other']}, this {e['ms']['this']} on {smi}",
+              flush=True)
+    return out
+
+
+def ab_split_gain(libs, stream, smi):
+    import numpy as np
+    import torch
+    from chip_smoke import BINS, C, M_ATTRS, N_NODES
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.split_gain import ops as sg_ops
+    from repro_torch.kernels.split_gain.ref import NEG, split_gain_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(7)
+    out = {}
+    for rows in (16, N_NODES):
+        s = rng.randint(0, 30, (rows, M_ATTRS, BINS, C)).astype(np.float32)
+        s *= rng.uniform(size=s.shape) < 0.5
+        s = torch.from_numpy(s).to(dev)
+        runs, got = {}, {}
+        for tag in ("other", "this"):
+            fn = entry(libs[tag]["split_gain"], "split_gain_launch",
+                       sg_ops._ARGTYPES)
+            g = torch.empty((rows, M_ATTRS, BINS), device=dev)
+
+            def run(fn=fn, g=g):
+                _build.check(fn(s.data_ptr(), g.data_ptr(), rows * M_ATTRS,
+                                BINS, C, stream), "split_gain")
+            run()
+            runs[tag], got[tag] = run, g
+        torch.cuda.synchronize()
+        want = split_gain_ref(s)
+        what = "tile" if rows == 16 else "full"
+        e = {"shape": [rows, M_ATTRS, BINS, C],
+             "bits_differing": bits_differing(got["other"], got["this"]),
+             "neg_mask_equal": {t: bool(torch.equal(got[t] == NEG,
+                                                    want == NEG))
+                                for t in got},
+             "elements": want.numel(), "ms": in_turns(runs)}
+        out[what] = e
+        print(f"split_gain {what} {e['shape']}: bits differing "
+              f"{e['bits_differing']} of {e['elements']}, NEG mask as the "
+              f"plain version's {e['neg_mask_equal']}; device ms other "
+              f"{e['ms']['other']}, this {e['ms']['this']} on {smi}",
+              flush=True)
+    return out
+
+
+AB = {"selective_scan": ab_selective_scan,
+      "flash_attention": ab_flash_attention, "rule_stats": ab_rule_stats,
+      "split_gain": ab_split_gain}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=list(KERNELS))
+    ap.add_argument("--json", type=Path, default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab.py: no CUDA device")
+    from chip_smoke import nvidia_smi
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    libs, ptxas = {}, {}
+    for tag, root in (("other", args.other.resolve()), ("this", ROOT)):
+        libs[tag], ptxas[tag] = build(
+            tag, root / "src" / "repro_torch" / "csrc", args.kernels)
+        for name in args.kernels:
+            print(f"ptxas {tag} {name}: " + " | ".join(ptxas[tag][name]),
+                  flush=True)
+    stream = _build.stream_of(torch.empty(1, device="cuda"))
+    result = {"device": torch.cuda.get_device_name(0), "smi": smi}
+    for name in args.kernels:
+        result[name] = AB[name](libs, stream, smi)
     result["ptxas"] = ptxas
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
