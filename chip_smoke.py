@@ -10,7 +10,6 @@ Phases (any failure raises, and the script exits non-zero without a result):
   2. build    -- builds the hand-written kernels of src/repro_torch/csrc with
                  nvcc into the git-ignored build/ directory, and logs each
                  instantiation's registers, spill bytes and shared memory
-                 for rule_stats, split_gain and the two LM kernels
                  (selective_scan must not spill).
   3. kernels  -- each kernel against its plain PyTorch version on the card at
                  the main path's shapes, and its median time over 50 launches
@@ -21,8 +20,9 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  dense-1000, wok): every kernel must have launched, the tree
                  must grow, and a re-run of the same stream with the plain
                  versions on the card must give the same per-batch metrics
-                 and the same tree.  tree_route is also checked on the
-                 learned tree.
+                 and the same tree.  tree_route and vht_stats are also
+                 checked and timed on the learned tree and the last batch,
+                 the inputs the path gives them.
   5. paths    -- dense-20 and dense-200 in the local, wok and wk(256)
                  variants, and the MA/LS topology on the LocalEngine and the
                  StreamEngine at dense-200, each against its plain re-run.
@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import json
 import math
 import re
@@ -331,9 +332,9 @@ def ptxas_report(text):
 
 
 def phase_build():
-    """Builds every kernel; logs the ptxas lines of each and, for
-    rule_stats, split_gain and the two LM kernels, registers, spills and
-    shared memory per instantiation.  selective_scan must spill nothing."""
+    """Builds every kernel; logs the ptxas lines of each and registers,
+    spills and shared memory per instantiation.  selective_scan must spill
+    nothing."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -344,7 +345,7 @@ def phase_build():
         log(f"  {name}: {info['seconds']:.2f} s cached={info['cached']} "
             + " | ".join(regs))
     report = {}
-    for name in ("rule_stats", "split_gain", *LM_ARCHS.values()):
+    for name in (*VHT_KERNELS, "rule_stats", *LM_ARCHS.values()):
         report[name] = ptxas_report(_build.BUILD_LOG[name]["ptxas"])
         require(report[name], f"no ptxas report for {name}")
         for r in report[name]:
@@ -353,6 +354,20 @@ def phase_build():
                 "static shared memory")
     require(all(r["spill_bytes"] == 0 for r in report["selective_scan"]),
             f"selective_scan spills: {report['selective_scan']}")
+    # vht_stats' histogram over the leaves present and tree_route's staged
+    # tree take dynamic shared memory, as their launchers compute it
+    plan = (ctypes.c_int * 3)()
+    _build.check(_build.function(
+        "vht_stats", "vht_stats_plan", (ctypes.c_int,) * 4 + (ctypes.c_void_p,))(
+            N_NODES, B, BINS, C, ctypes.addressof(plan)), "vht_stats_plan")
+    ja, group, smem = plan
+    log(f"  vht_stats dynamic shared memory per block at [{N_NODES}, "
+        f"{M_ATTRS}, {BINS}, {C}], B = {B}: {smem} bytes ({ja} attributes "
+        f"a block, {group} leaves a pass)")
+    smem = _build.function("tree_route", "tree_route_smem",
+                           (ctypes.c_int,))(N_NODES)
+    log(f"  tree_route dynamic shared memory per block at N = {N_NODES}: "
+        f"{smem} bytes")
     # split_gain's thread per (row, bin) takes dynamic shared memory: 256 /
     # bins rows of bins x C counts and their total's entropy (the full
     # fallback's thread per row takes none)
@@ -748,6 +763,7 @@ def phase_main(dev, smi):
     torch.cuda.synchronize()
     require(torch.equal(got, want), "tree_route differs on the learned tree")
     log(f"tree_route on the learned tree ({int(st['n_nodes'])} nodes): exact")
+    on_path = kernels_on_path(st, xb, batches[-1][1], got, smi)
 
     syncs = count_syncs(VHT(cfg, device=dev), tree_clone(st), batches[:20])
     log(f"main path: {syncs:.2f} device-to-host syncs per step "
@@ -755,7 +771,60 @@ def phase_main(dev, smi):
     prof = profile_steps(VHT(cfg, device=dev), tree_clone(st), batches[:50])
     return {"us_per_batch": us, "inst_per_s": res.throughput,
             "acc": res.metric, "n_nodes": int(st["n_nodes"]),
-            "launches": count, "syncs_per_step": syncs, "profile": prof}
+            "launches": count, "syncs_per_step": syncs, "profile": prof,
+            "kernels_on_path": on_path}
+
+
+def kernels_on_path(st, xb, y, leaf, smi):
+    """tree_route and vht_stats on the inputs the main path gives them:
+    the learned tree and the last batch, routed to its leaves (weights 1,
+    on a copy of the learned statistics).  vht_stats must equal its plain
+    version bit for bit; device ms of each beside its plain version's and
+    its bound."""
+    import torch
+    from repro_torch.kernels.tree_route.ops import tree_route
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+    from repro_torch.kernels.vht_stats.ops import stats_update
+    from repro_torch.kernels.vht_stats.ref import stats_update_ref
+
+    tables = (st["split_attr"], st["split_bin"], st["children"])
+    ones = torch.ones(B, dtype=torch.float32, device=xb.device)
+    got = stats_update(st["stats"].clone(), leaf, xb, y, ones)
+    want = stats_update_ref(st["stats"].clone(), leaf, xb, y, ones)
+    torch.cuda.synchronize()
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            "vht_stats differs from its plain version on the main path's "
+            "inputs")
+    steps = route_steps(*(a[None] for a in tables), xb, DEPTH)
+    work = st["stats"].clone()
+    jj = torch.arange(M_ATTRS, device=xb.device)
+    cells = int(torch.unique(((leaf.long()[:, None] * M_ATTRS + jj) * BINS
+                              + xb.long()) * C + y.long()[:, None]).numel())
+    out = {}
+    for name, fn, plain, moved, ops in (
+            ("tree_route",
+             lambda: tree_route(*tables, xb, max_depth=DEPTH),
+             lambda: tree_route_ref(*(a[None] for a in tables), xb, DEPTH),
+             st["split_attr"].numel() * 16 + steps * 4 + B * 4, steps),
+            ("vht_stats",
+             lambda: stats_update(work, leaf, xb, y, ones),
+             lambda: stats_update_ref(work, leaf, xb, y, ones),
+             B * 12 + B * M_ATTRS * 4 + cells * 8, B * M_ATTRS)):
+        kt, pt = timed(fn), timed(plain)
+        bound_ms, bound_by = bound(moved, ops)
+        out[name] = {"ms": kt["ms"], "call_ms": kt["call_ms"],
+                     "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
+                     "bytes": moved, "ops": ops, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    out["vht_stats"]["leaves"] = int(torch.unique(leaf).numel())
+    out["tree_route"]["n_nodes"] = int(st["n_nodes"])
+    log(f"on the main path's inputs ({int(st['n_nodes'])}-node tree, the "
+        f"last batch in {out['vht_stats']['leaves']} leaves; vht_stats "
+        f"bit-identical to its plain version): " + "; ".join(
+            f"{k} device ms {v['ms']:.5f} (plain {v['plain_ms']:.5f}, bound "
+            f"{v['bound_ms']:.3g} {v['bound_by']}), call ms {v['call_ms']:.5f}"
+            for k, v in out.items()) + f" on {smi}")
+    return out
 
 
 def phase_paths(dev):

@@ -1,54 +1,145 @@
 // tree_route: sort one shared [B, m] micro-batch to a leaf in each of M trees.
 //
-// Replaces src/repro/kernels/tree_route/kernel.py::tree_route_pallas (the
-// `_kernel` body), which made every depth step a [B, N] x [N, 4] one-hot
-// matmul on the TPU's matrix unit because a pointer chase is slow there.
+// Replaces src/repro/kernels/tree_route/kernel.py::tree_route_pallas
+// (kernel.py:61, its pallas_call at :68), which made every depth step a
+// [B, N] x [N, 4] one-hot matmul on the TPU's matrix unit because a
+// pointer chase is slow there.
 //
-// On the H100 the pointer chase is cheap: one thread per (member, instance)
-// walks its tree, and a block first copies its member's four node tables
-// (split_attr, split_bin, left, right; N x 16 bytes) into shared memory, so
-// each depth step is one shared-memory read of the node and one
-// device-memory read of xbin[b, attr].  The work is a few bytes per
-// instance and depth step, so at the main path's B = 512 the kernel is bound
-// by its launch, not by bytes or operations.  A thread stops as soon as its
-// node is a leaf (attr < 0): the reference keeps the node fixed from then
-// on, so the leaf ids are the same.  Integer-only, so bit-identical to the
-// plain version.
+// What bounds it on the H100: a few bytes per instance and depth step,
+// 0.0000046 ms of bytes at the VHT main path's B = 512, so neither bytes
+// nor operations.  A first kernel with one thread per (member, instance)
+// walking its tree made every depth step a device-memory read of
+// xbin[b, attr] that waited on the one before: a chain of up to max_depth
+// round trips to L2 or HBM, after the launch and the table's staging, in
+// only 2 blocks of 256 threads at M = 1, B = 512.
+//
+// Design: no device-memory read waits on another.
+//  1. A warp takes one (member, instance); a block of 8 warps takes 8
+//     instances of one member (grid: B / 8 by M; 64 blocks at the main
+//     path's shape).
+//  2. The block stages its member's children in shared memory, packed as
+//     two 16-bit ids a node, and numbers the member's inner nodes
+//     (split_attr >= 0) 0 .. K-1, with their split attribute and bin in
+//     that order: K <= (N - 1) / 2 in a tree, 25 on the main path's
+//     learned tree of 51 nodes.
+//  3. Each warp's lanes load xbin[b, attr_k] for every inner node k at
+//     once (up to ROUNDS loads a lane in flight) and keep one decision bit
+//     per inner node, "go right", from a warp vote.
+//  4. The walk from the root then runs in shared memory alone, a few
+//     reads a level, with the same rules as before: it stops at a leaf
+//     (split_attr < 0), and after max_depth steps.
+// So the kernel's reads of device memory are two rounds, the table and
+// then the gather, whatever the depth.  A warp reads xbin for every inner
+// node, reached or not, K loads where the walk needs its depth: a few KB
+// more from L2 per launch at the main path's shape.  A read past the end
+// of xbin (a split attribute >= m, which no valid tree has) gives 0.
+// Integer-only, so bit-identical to the plain version.  N is limited by
+// shared memory (about 15 000 nodes) and by the 16-bit child ids.
+//
+// Measured with tools/kernel_ab.py against the first kernel (NVIDIA H100
+// 80GB HBM3, 700 W; device ms): 0.0033 (0.0039) on a 51-node tree, 0.0036
+// (0.0042) on a random full tree of 255 nodes, 0.0049 (0.0056) on five
+// such trees; a one-node tree at B = 1, what any launch of this shape
+// pays, takes 0.0023 (0.0022).
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+
 namespace {
 
-__global__ void tree_route_kernel(const int* __restrict__ split_attr,
-                                  const int* __restrict__ split_bin,
-                                  const int* __restrict__ children,
-                                  const int* __restrict__ xbin,
-                                  int* __restrict__ leaf,
-                                  int N, int B, int m, int max_depth) {
-  extern __shared__ int table[];          // [N][4]: attr, bin, left, right
+constexpr int WARPS = 8;                 // instances per block
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROUNDS = 4;                // xbin loads a lane keeps in flight
+
+// Shared memory: children [N] (left | right << 16), the inner nodes'
+// attribute and bin [N] each, each warp's decision bits [WARPS][words],
+// and each node's inner number [N] (16-bit, -1 at a leaf).
+size_t smem_bytes(int N) {
+  const size_t words = (N + 31) / 32;
+  return 12 * (size_t)N + 4 * WARPS * words + 2 * (size_t)N;
+}
+
+__global__ void __launch_bounds__(THREADS)
+tree_route_kernel(const int* __restrict__ split_attr,
+                  const int* __restrict__ split_bin,
+                  const int* __restrict__ children,
+                  const int* __restrict__ xbin, int* __restrict__ leaf,
+                  int N, int B, int m, int max_depth) {
+  extern __shared__ unsigned lr[];
+  __shared__ int n_inner;
+  const int words = (N + 31) >> 5;
+  int* iattr = reinterpret_cast<int*>(lr + N);
+  int* ibin = iattr + N;
+  unsigned* dec = reinterpret_cast<unsigned*>(ibin + N);
+  short* inner_of = reinterpret_cast<short*>(dec + WARPS * words);
   const int member = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* sa = split_attr + (size_t)member * N;
   const int* sb = split_bin + (size_t)member * N;
   const int* ch = children + (size_t)member * N * 2;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    table[4 * n + 0] = sa[n];
-    table[4 * n + 1] = sb[n];
-    table[4 * n + 2] = ch[2 * n + 0];
-    table[4 * n + 3] = ch[2 * n + 1];
+
+  // 2. the member's table; inner nodes numbered by a vote per 32 nodes
+  if (threadIdx.x == 0) n_inner = 0;
+  __syncthreads();
+  for (int n0 = warp * 32; n0 < N; n0 += THREADS) {
+    const int n = n0 + lane;
+    int a = -1, bn = 0, l = 0, r = 0;
+    if (n < N) {
+      a = sa[n];
+      bn = sb[n];
+      l = ch[2 * n];
+      r = ch[2 * n + 1];
+    }
+    const unsigned inner = __ballot_sync(0xffffffffu, a >= 0);
+    int base = 0;
+    if (lane == 0 && inner) base = atomicAdd(&n_inner, __popc(inner));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (n < N) {
+      lr[n] = ((unsigned)l & 0xffffu) | ((unsigned)r << 16);
+      int k = -1;
+      if (a >= 0) {
+        k = base + __popc(inner & ((1u << lane) - 1u));
+        iattr[k] = a;
+        ibin[k] = bn;
+      }
+      inner_of[n] = (short)k;
+    }
   }
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.x * WARPS + warp;
   if (b >= B) return;
-  const int* row = xbin + (size_t)b * m;
-  int node = 0;
-  for (int d = 0; d < max_depth; ++d) {
-    const int attr = table[4 * node];
-    if (attr < 0) break;
-    const int v = row[attr];
-    node = v > table[4 * node + 1] ? table[4 * node + 3] : table[4 * node + 2];
+  // 3. one decision bit per inner node, all loads of a batch in flight
+  const int K = n_inner;
+  const size_t row = (size_t)b * m, end = (size_t)B * m;
+  unsigned* d = dec + warp * words;
+  for (int k0 = 0; k0 < K; k0 += 32 * ROUNDS) {
+    int v[ROUNDS];
+#pragma unroll
+    for (int u = 0; u < ROUNDS; ++u) {
+      const int k = k0 + 32 * u + lane;
+      const size_t at = k < K ? row + iattr[k] : end;
+      v[u] = at < end ? xbin[at] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < ROUNDS; ++u) {
+      const int k = k0 + 32 * u + lane;
+      const unsigned right =
+          __ballot_sync(0xffffffffu, k < K && v[u] > ibin[k]);
+      if (lane == 0 && k0 + 32 * u < K) d[(k0 >> 5) + u] = right;
+    }
   }
-  leaf[(size_t)member * B + b] = node;
+  __syncwarp();
+  // 4. the walk, in shared memory
+  int node = 0;
+  for (int depth = 0; depth < max_depth; ++depth) {
+    const int k = inner_of[node];
+    if (k < 0) break;
+    const unsigned c = lr[node];
+    node = (d[k >> 5] >> (k & 31)) & 1u ? (int)(c >> 16) : (int)(c & 0xffffu);
+  }
+  if (lane == 0) leaf[(size_t)member * B + b] = node;
 }
 
 }  // namespace
@@ -57,17 +148,20 @@ extern "C" int tree_route_launch(const void* split_attr, const void* split_bin,
                                  const void* children, const void* xbin,
                                  void* leaf, int M, int N, int B, int m,
                                  int max_depth, void* stream) {
-  const int threads = 256;
-  const size_t smem = (size_t)N * 4 * sizeof(int);
+  if (N <= 0 || N > 0x8000) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(N);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         tree_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((B + threads - 1) / threads, M);
-  tree_route_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  dim3 grid((B + WARPS - 1) / WARPS, M);
+  tree_route_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)split_attr, (const int*)split_bin, (const int*)children,
       (const int*)xbin, (int*)leaf, N, B, m, max_depth);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory bytes a block takes for trees of N nodes.
+extern "C" int tree_route_smem(int N) { return (int)smem_bytes(N); }

@@ -2,9 +2,11 @@
 model aggregator's step, paper Alg. 1 line 1; M > 1 for ensembles).
 
 On a CUDA tensor it launches the hand-written kernel of
-``csrc/tree_route.cu`` (one thread per (member, instance), the member's
-node tables in shared memory); on a CPU tensor it runs the plain version of
-``ref.py``.  Routing is integer-only, so both give the same leaf ids.
+``csrc/tree_route.cu``: a warp per (member, instance) loads the instance's
+bin of every inner node of the member's tree at once and then walks the
+tree in shared memory, so no device-memory read waits on another.  On a
+CPU tensor it runs the plain version of ``ref.py``.  Routing is
+integer-only, so both give the same leaf ids.
 """
 
 from __future__ import annotations

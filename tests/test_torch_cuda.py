@@ -29,7 +29,7 @@ from repro_torch.kernels.split_gain.ops import NEG, split_gain
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.tree_route.ops import tree_route
 from repro_torch.kernels.tree_route.ref import tree_route_ref
-from repro_torch.kernels.vht_stats.ops import stats_update
+from repro_torch.kernels.vht_stats.ops import stats_update, tile_plan
 from repro_torch.kernels.vht_stats.ref import stats_update_ref
 
 
@@ -95,6 +95,175 @@ def test_vht_stats_kernel_matches_plain(cuda, weights):
     tol = 0.0 if weights == "mixed" else 1e-5
     torch.testing.assert_close(out, want, rtol=0, atol=tol)
     assert launches()["vht_stats"] == 1
+
+
+def _vht_case(N, m, nb, C, B, kind, seed):
+    """Integer counts and 0/1 weights (exact in any order of the sums):
+    "random" leaves, bins and classes (a batch over many leaves, which the
+    kernel adds hit by hit); "few" leaves in [0, 20) and "grouped" in
+    [0, 40) (summed in the histogram, "grouped" in several passes);
+    "one-cell" every instance in leaf 7 and bin nb - 1; "distinct" B = N
+    instances, each in its own leaf; "zero" all weights 0; "out-of-range"
+    leaves in [-2, N + 2), bins in [-1, nb] and classes in [-1, C], all out
+    of range but those dropped; "fractional" few leaves, fractional counts
+    and weights."""
+    rng = np.random.RandomState(seed)
+    stats = rng.randint(0, 50, (N, m, nb, C)).astype(np.float32)
+    leaf = rng.randint(0, N, B)
+    xbin = rng.randint(0, nb, (B, m))
+    y = rng.randint(0, C, B)
+    w = (rng.uniform(size=B) < 0.8).astype(np.float32)
+    if kind in ("few", "grouped", "fractional"):
+        leaf = rng.randint(0, min(N, 20 if kind != "grouped" else 40), B)
+    if kind == "fractional":
+        stats = (rng.uniform(size=stats.shape) * 5).astype(np.float32)
+        w = rng.uniform(size=B).astype(np.float32)
+    elif kind == "one-cell":
+        leaf, xbin = np.full(B, min(7, N - 1)), np.full((B, m), nb - 1)
+    elif kind == "distinct":
+        leaf = rng.permutation(N)[:B]
+    elif kind == "zero":
+        w[:] = 0.0
+    elif kind == "out-of-range":
+        leaf = rng.randint(-2, N + 2, B)
+        xbin = rng.randint(-1, nb + 1, (B, m))
+        y = rng.randint(-1, C + 1, B)
+    return (stats, leaf.astype(np.int32), xbin.astype(np.int32),
+            y.astype(np.int32), w)
+
+
+def _vht_oracle(stats, leaf, xbin, y, w):
+    """The update with out-of-range leaves, bins and classes dropped, by a
+    masked index_add_ on the CPU (the plain version takes only ids in
+    range)."""
+    stats, leaf, xbin, y, w = (a.cpu() for a in (stats, leaf, xbin, y, w))
+    N, m, nb, C = stats.shape
+    keep = (w != 0) & (leaf >= 0) & (leaf < N) & (y >= 0) & (y < C)
+    i, j = (keep[:, None] & (xbin >= 0) & (xbin < nb)).nonzero(as_tuple=True)
+    flat = ((leaf[i].long() * m + j) * nb + xbin[i, j].long()) * C \
+        + y[i].long()
+    return stats.clone().view(-1).index_add_(0, flat, w[i]).view(N, m, nb, C)
+
+
+VHT_CASES = [(255, 1000, 8, 2, 512, "one-cell"),
+             (255, 1000, 8, 2, 255, "distinct"),
+             (255, 100, 8, 2, 512, "zero"),
+             (255, 40, 8, 2, 512, "out-of-range"),
+             (255, 1, 8, 2, 512, "random"), (255, 1, 8, 2, 512, "few"),
+             (255, 999, 8, 2, 512, "random"), (255, 999, 8, 2, 513, "few"),
+             (255, 1000, 8, 2, 1, "random"), (255, 1000, 8, 2, 513, "random"),
+             (255, 200, 16, 3, 512, "random"), (255, 200, 16, 3, 512, "few"),
+             (255, 50, 5, 3, 512, "few"), (1, 30, 8, 2, 512, "random"),
+             (64, 5, 64, 32, 1024, "grouped"),
+             (255, 1000, 8, 2, 512, "fractional")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,m,nb,C,B,kind", VHT_CASES)
+def test_vht_stats_kernel_exact_at_edge_cases(cuda, N, m, nb, C, B, kind):
+    """One leaf and one bin, 255 distinct leaves, all weights 0, ids out of
+    range, m = 1 and 999 (not a multiple of the tile), B = 1 and 513, bins
+    x C = 16 x 3 and 5 x 3 (cells that are not a multiple of four), a
+    one-leaf pool, and [64, 5, 64, 32] at B = 1024 over
+    40 leaves, more than one pass of the histogram holds; batches over
+    many leaves and over few: equal to the plain version (the masked
+    oracle for ids out of range), bit for bit; fractional weights within
+    1e-5 (another order of the sums)."""
+    args = [_t(a).to(cuda) for a in _vht_case(N, m, nb, C, B, kind,
+                                              seed=N + m + B)]
+    stats, rest = args[0], args[1:]
+    if kind == "grouped":       # the leaf-group loop runs five times
+        assert tile_plan(N, B, nb, C)[1] * 5 == int(
+            torch.unique(rest[0]).numel())
+    out = stats_update(stats.clone(), *rest)
+    if kind == "out-of-range":
+        want = _vht_oracle(stats, *rest).to(cuda)
+    else:
+        want = stats_update_ref(stats.clone(), *rest)
+    tol = 1e-5 if kind == "fractional" else 0.0
+    torch.testing.assert_close(out, want, rtol=0, atol=tol)
+    assert launches()["vht_stats"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["few", "random"])
+def test_vht_stats_kernel_unaligned_inputs(cuda, kind):
+    """stats and xbin views that start 4 bytes past a 16-byte boundary take
+    the 4-byte loads and atomic adds and give the same bits."""
+    stats, leaf, xbin, y, w = _vht_case(255, 40, 8, 2, 512, kind, seed=3)
+
+    def shifted(a):
+        flat = torch.zeros(a.size + 1, dtype=torch.from_numpy(a).dtype,
+                           device=cuda)
+        flat[1:] = _t(a.reshape(-1)).to(cuda)
+        return flat[1:].view(a.shape)
+    stats, xbin = shifted(stats), shifted(xbin)
+    assert stats.data_ptr() % 16 != 0 and xbin.data_ptr() % 16 != 0
+    leaf, y, w = (_t(a).to(cuda) for a in (leaf, y, w))
+    want = stats_update_ref(stats.clone(), leaf, xbin, y, w)
+    out = stats_update(stats, leaf, xbin, y, w)     # in place, on the view
+    assert out.data_ptr() == stats.data_ptr()
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert launches()["vht_stats"] == 1
+
+
+@pytest.mark.cuda
+def test_vht_stats_kernel_plan_is_the_wrappers(cuda):
+    """csrc/vht_stats.cu's tiling equals ops.tile_plan's, and both refuse
+    a shape whose single leaf does not fit."""
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = _build.function("vht_stats", "vht_stats_plan",
+                         (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+    out = (ctypes.c_int * 3)()
+    for N, B, nb, C in [(1, 512, 8, 2), (255, 512, 8, 2), (4096, 512, 8, 2),
+                        (4096, 4096, 16, 3), (283, 4096, 8, 2),
+                        (284, 4096, 8, 2), (255, 1, 8, 2), (64, 1024, 64, 32),
+                        (9000, 9000, 4, 2)]:
+        assert fn(N, B, nb, C, ctypes.addressof(out)) == 0
+        assert tuple(out) == tile_plan(N, B, nb, C)
+    assert fn(255, 512, 64, 300, ctypes.addressof(out)) != 0
+    with pytest.raises(ValueError):
+        tile_plan(255, 512, 64, 300)
+
+
+def _chain(N, m, seed):
+    """A chain of (N - 1) / 2 inner nodes, each with a leaf on its left and
+    the next inner node on its right, deeper than max_depth = 24."""
+    rng = np.random.RandomState(seed)
+    sa = np.full((1, N), -1, np.int32)
+    sb = np.zeros((1, N), np.int32)
+    ch = np.zeros((1, N, 2), np.int32)
+    for k in range((N - 1) // 2):
+        node = 2 * k
+        sa[0, node], sb[0, node] = rng.randint(m), rng.randint(-1, 2)
+        ch[0, node] = (node + 1, node + 2)
+    return sa, sb, ch
+
+
+ROUTE_CASES = [(5, 51, 1000, 512, "random"), (1, 1, 1000, 512, "random"),
+               (1, 121, 1000, 512, "chain"), (1, 255, 1000, 1, "random"),
+               (1, 255, 1000, 513, "random"), (3, 63, 1, 512, "random"),
+               (1, 1023, 1000, 512, "random"),
+               (2, 14527, 1000, 64, "random")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,m,B,kind", ROUTE_CASES)
+def test_tree_route_kernel_exact_at_edge_cases(cuda, M, N, m, B, kind):
+    """M = 5 trees of 51 nodes, a one-node tree, a chain deeper than
+    max_depth (the cut stops at an inner node), B = 1 and 513, m = 1,
+    N = 1023, and N = 14527, the most nodes the first kernel's 16 bytes a
+    node took in shared memory: the plain version's leaf ids."""
+    if kind == "chain":
+        sa, sb, ch = _chain(N, m, seed=N)
+    else:
+        sa, sb, ch = random_trees(M, N, m, 8, seed=M + N)
+    xbin = np.random.RandomState(B).randint(0, 8, (B, m)).astype(np.int32)
+    args = [_t(a).to(cuda) for a in (sa, sb, ch, xbin)]
+    out = tree_route(*args, max_depth=24)
+    torch.testing.assert_close(out, tree_route_ref(*args, 24), rtol=0, atol=0)
+    assert launches()["tree_route"] == 1
 
 
 @pytest.mark.cuda

@@ -37,7 +37,8 @@ from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
                                                 rule_stats_update)
 from repro_torch.kernels.split_gain.ops import NEG, split_gain
 from repro_torch.kernels.tree_route.ops import tree_route
-from repro_torch.kernels.vht_stats.ops import stats_update
+from repro_torch.kernels.vht_stats.ops import (BUDGET, DENSE, stats_update,
+                                               tile_plan)
 
 
 def _t(a):
@@ -101,6 +102,44 @@ def test_vht_stats_weight_zero_is_noop():
                        torch.zeros((16, 4), dtype=torch.int32),
                        torch.zeros(16, dtype=torch.int32), torch.zeros(16))
     torch.testing.assert_close(out, stats, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,B,nb,C,plan", [
+    (1, 512, 8, 2, (4, 1, 268)),            # one leaf: the most attributes
+    (255, 512, 8, 2, (4, 64, 16704)),       # the VHT main path: 250 blocks
+    (4096, 512, 8, 2, (4, 64, 17664)),      # B / 8 = 64 leaves at most
+    (283, 4096, 8, 2, (4, 283, 73652)),     # the budget's edge at ja = 4
+    (284, 4096, 8, 2, (2, 284, 37560)),     # one leaf more: ja = 2
+    (4096, 4096, 16, 3, (1, 368, 73728)),   # two passes, the budget filled
+    (64, 1024, 64, 32, (1, 8, 65808)),      # eight leaves a pass
+])
+def test_vht_stats_tile_plan(N, B, nb, C, plan):
+    """The kernel's tiling: the most attributes a block (1, 2 or 4) for
+    which the histogram's leaves, min(N, B / 8), fit in the shared-memory
+    budget, and groups of leaves where they do not fit at one attribute."""
+    assert tile_plan(N, B, nb, C) == plan
+    assert plan[2] <= BUDGET
+
+
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 255, 1000, 4096, 70000])
+@pytest.mark.parametrize("B,nb,C", [(1, 8, 2), (512, 8, 2), (513, 16, 3),
+                                    (4096, 64, 32)])
+def test_vht_stats_tile_plan_fits_its_budget(N, B, nb, C):
+    """Whatever the shape: the block's bytes within the budget, 1, 2 or 4
+    attributes, at least one leaf a pass, and a pass short of the
+    histogram's leaves only at one attribute a block."""
+    ja, group, smem = tile_plan(N, B, nb, C)
+    most = min(N, max(B // DENSE, 1))
+    assert smem <= BUDGET and ja in (1, 2, 4) and 1 <= group <= most
+    assert group == most or ja == 1
+    assert smem == 8 * ((N + 31) // 32) + 4 * most + group * ja * nb * C * 4
+
+
+def test_vht_stats_tile_plan_refuses_a_leaf_that_does_not_fit():
+    with pytest.raises(ValueError):
+        tile_plan(255, 512, 64, 300)        # 76.8 KB of cells for one leaf
+    with pytest.raises(ValueError):
+        tile_plan(400_000, 512, 8, 2)       # the bitmap alone is too large
 
 
 # ------------------------------ split_gain ----------------------------------

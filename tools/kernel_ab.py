@@ -6,9 +6,9 @@
 OTHER is the root of another checkout of the repository (for example an
 unpacked ``git archive`` of the parent commit).  Both checkouts'
 ``src/repro_torch/csrc/<name>.cu`` are built with the port's nvcc flags
-(by default selective_scan, flash_attention, rule_stats and split_gain;
-``--kernels`` takes a subset), and both C entry points run on the same
-inputs:
+(by default all six: selective_scan, flash_attention, rule_stats,
+split_gain, vht_stats and tree_route; ``--kernels`` takes a subset), and
+both C entry points run on the same inputs:
 
 - selective_scan at falcon_mamba_7b's prefill shape (B = 4, L = 2048,
   dI = 8192, N = 16, float32): the number of final-state elements that
@@ -24,7 +24,21 @@ inputs:
   that differ bit for bit from each other and from the plain version;
 - split_gain at the VHT main path's gathered tile [16, 1000, 8, 2] and
   full fallback [255, 1000, 8, 2]: the elements that differ bit for bit,
-  and the NEG masks.
+  and the NEG masks;
+- vht_stats at the VHT main path's [255, 1000, 8, 2], B = 512, 0/1
+  weights on integer counts: a batch uniform over the 255 leaves (as
+  chip_smoke.py draws it), a batch all in leaf 0 (how every stream
+  starts), batches routed through seeded random trees of 51 nodes (the
+  size of the main path's learned tree) and of 191 and 255 nodes (a
+  mature tree's 96 and 128 leaves), batches uniform over 16 to 128
+  leaves (around the kernel's switch between its two paths at B / 8 = 64
+  leaves), and fractional weights on fractional counts, uniform and
+  through the 51-node tree: the elements that differ bit for bit from
+  each other and from the plain version (the largest difference for
+  fractional weights);
+- tree_route at B = 512, m = 1000: a random full tree of 255 nodes at
+  M = 1 and M = 5, the seeded tree of 51 nodes, and a one-node tree at
+  B = 1, the launch floor: the leaf ids that differ.
 
 Device ms per launch are taken in turns (other, this, this, other) with
 ``chip_smoke.device_ms``, beside ``F.scaled_dot_product_attention``'s for
@@ -46,7 +60,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 KERNELS = ("selective_scan", "flash_attention", "rule_stats",
-           "split_gain")
+           "split_gain", "vht_stats", "tree_route")
 
 
 def build(tag, csrc, kernels):
@@ -323,9 +337,158 @@ def ab_split_gain(libs, stream, smi):
     return out
 
 
+def tree_grown(dev, N=51):
+    """A seeded random tree grown to N nodes, as [1, N] tables: 51 is the
+    size of the VHT main path's learned tree after 200 batches, 191 and 255
+    (96 and 128 leaves) those of a mature tree in a 255-node pool."""
+    import torch
+    from chip_smoke import BINS, M_ATTRS, random_trees
+    return [torch.from_numpy(a).to(dev)
+            for a in random_trees(1, N, M_ATTRS, BINS, seed=N)]
+
+
+def vht_stats_cases(dev):
+    """{what: (stats, leaf, xbin, y, w, exact)} of the A/B, at the VHT main
+    path's [255, 1000, 8, 2] and B = 512."""
+    import numpy as np
+    import torch
+    from chip_smoke import B, BINS, C, DEPTH, M_ATTRS, N_NODES
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+
+    rng = np.random.RandomState(0)             # as chip_smoke.py draws it
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    xbin = t(rng.randint(0, BINS, (B, M_ATTRS)).astype(np.int32))
+    leaf = t(rng.randint(0, N_NODES, B).astype(np.int32))
+    y = t(rng.randint(0, C, B).astype(np.int32))
+    counts = t(rng.randint(0, 50, (N_NODES, M_ATTRS, BINS, C))
+               .astype(np.float32))
+    w01 = t((rng.uniform(size=B) < 0.8).astype(np.float32))
+    frac = t((rng.uniform(size=(N_NODES, M_ATTRS, BINS, C)) * 5)
+             .astype(np.float32))
+    wf = t(rng.uniform(size=B).astype(np.float32))
+    routed = {n: tree_route_ref(*tree_grown(dev, n), xbin, DEPTH)[0]
+              for n in (51, 191, 255)}
+    cases = {"uniform over 255 leaves": (counts, leaf, xbin, y, w01, True),
+             "one leaf": (counts, torch.zeros_like(leaf), xbin, y, w01, True),
+             "51-node tree": (counts, routed[51], xbin, y, w01, True),
+             "191-node tree": (counts, routed[191], xbin, y, w01, True),
+             "255-node tree": (counts, routed[255], xbin, y, w01, True),
+             "fractional weights": (frac, leaf, xbin, y, wf, False),
+             "fractional weights, 51-node tree": (frac, routed[51], xbin, y,
+                                                  wf, False)}
+    for k in (16, 32, 64, 96, 128):     # around the switch at B / 8 leaves
+        cases[f"uniform over {k} leaves"] = (
+            counts, t(rng.randint(0, k, B).astype(np.int32)), xbin, y, w01,
+            True)
+    return cases
+
+
+def ab_vht_stats(libs, stream, smi):
+    import torch
+    from chip_smoke import max_abs_err
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.vht_stats import ops as vs_ops
+    from repro_torch.kernels.vht_stats.ref import stats_update_ref
+
+    out = {}
+    for what, (stats, leaf, xbin, y, w, exact) in vht_stats_cases(
+            torch.device("cuda")).items():
+        N, m, bins, C = stats.shape
+        n = leaf.shape[0]
+        runs, got = {}, {}
+        for tag in ("other", "this"):
+            fn = entry(libs[tag]["vht_stats"], "vht_stats_launch",
+                       vs_ops._ARGTYPES)
+
+            def run(fn=fn, dst=stats.clone()):      # in place, into dst
+                _build.check(fn(dst.data_ptr(), leaf.data_ptr(),
+                                xbin.data_ptr(), y.data_ptr(), w.data_ptr(),
+                                N, n, m, bins, C, stream), "vht_stats")
+                return dst
+            got[tag] = run(dst=stats.clone())       # one launch from stats
+            runs[tag] = run
+        torch.cuda.synchronize()
+        want = stats_update_ref(stats.clone(), leaf, xbin, y, w)
+        e = {"shape": [N, m, bins, C], "B": n,
+             "leaves": int(torch.unique(leaf).numel()),
+             "bits_differing": bits_differing(got["other"], got["this"]),
+             "bits_differing_vs_plain": {
+                 t: bits_differing(got[t], want) for t in got},
+             "max_abs_diff_vs_plain": {
+                 t: max_abs_err(got[t], want) for t in got},
+             "elements": want.numel(), "exact": exact,
+             "ms": in_turns(runs)}
+        out[what] = e
+        print(f"vht_stats {what} {e['shape']} B={n} ({e['leaves']} leaves): "
+              f"bits differing {e['bits_differing']} of {e['elements']}, vs "
+              f"plain {e['bits_differing_vs_plain']} (max abs diff "
+              f"{e['max_abs_diff_vs_plain']}); device ms other "
+              f"{e['ms']['other']}, this {e['ms']['this']} on {smi}",
+              flush=True)
+    return out
+
+
+def ab_tree_route(libs, stream, smi):
+    import numpy as np
+    import torch
+    from chip_smoke import B, BINS, DEPTH, M_ATTRS, N_NODES, random_trees
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tree_route import ops as tr_ops
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+
+    dev = torch.device("cuda")
+    xbin = torch.from_numpy(np.random.RandomState(0).randint(
+        0, BINS, (B, M_ATTRS)).astype(np.int32)).to(dev)
+
+    def full(M):
+        return [torch.from_numpy(a).to(dev)
+                for a in random_trees(M, N_NODES, M_ATTRS, BINS, M)]
+    one = [torch.full((1, 1), -1, dtype=torch.int32, device=dev),
+           torch.zeros((1, 1), dtype=torch.int32, device=dev),
+           torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)]
+    cases = {"full 255-node tree, M = 1": (full(1), xbin),
+             "full 255-node tree, M = 5": (full(5), xbin),
+             "51-node tree": (tree_grown(dev), xbin),
+             "one-node tree, B = 1 (launch floor)": (one, xbin[:1])}
+    out = {}
+    for what, ((sa, sb, ch), xb) in cases.items():
+        M, N = sa.shape
+        n, m = xb.shape
+        runs, got = {}, {}
+        for tag in ("other", "this"):
+            fn = entry(libs[tag]["tree_route"], "tree_route_launch",
+                       tr_ops._ARGTYPES)
+            leaf = torch.empty((M, n), dtype=torch.int32, device=dev)
+
+            def run(fn=fn, leaf=leaf):
+                _build.check(fn(sa.data_ptr(), sb.data_ptr(), ch.data_ptr(),
+                                xb.data_ptr(), leaf.data_ptr(), M, N, n, m,
+                                DEPTH, stream), "tree_route")
+            run()
+            runs[tag], got[tag] = run, leaf
+        torch.cuda.synchronize()
+        want = tree_route_ref(sa, sb, ch, xb, DEPTH)
+        e = {"M": M, "N": N, "B": n,
+             "differing": int((got["other"] != got["this"]).sum()),
+             "differing_vs_plain": {t: int((got[t] != want).sum())
+                                    for t in got},
+             "elements": want.numel(), "ms": in_turns(runs)}
+        out[what] = e
+        print(f"tree_route {what} M={M} N={N} B={n}: leaf ids differing "
+              f"{e['differing']} of {e['elements']}, vs plain "
+              f"{e['differing_vs_plain']}; device ms other "
+              f"{e['ms']['other']}, this {e['ms']['this']} on {smi}",
+              flush=True)
+    return out
+
+
 AB = {"selective_scan": ab_selective_scan,
       "flash_attention": ab_flash_attention, "rule_stats": ab_rule_stats,
-      "split_gain": ab_split_gain}
+      "split_gain": ab_split_gain, "vht_stats": ab_vht_stats,
+      "tree_route": ab_tree_route}
 
 
 def main():
