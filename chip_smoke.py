@@ -52,6 +52,21 @@ Phases (any failure raises, and the script exits non-zero without a result):
   8. result   -- one JSON line of per-kernel numbers, then, as the last line,
                  {"ok": true, "device": {...}}.
 
+Phases 4 to 7 also run each path compiled (src/repro_torch/core/
+compiled.py: each step one captured CUDA graph, its lax.cond gates
+conditional nodes on the device), after its eager kernel run and against
+it: the main path through PrequentialEvaluation (its default) and
+JitEngine.run_stream on the bare learner, the dense-20 and dense-200
+variants, the MA/LS topology on JitEngine against the StreamEngine, MAMR,
+VAMR and HAMR-2 on waveform-40, and both models' prompt replay and decode
+through one graph each.  Per-batch metrics and final states must be bit
+for bit the eager run's, the 32 tokens equal and the last logits inside
+the LM gate.  The replays of a captured step run with the card's sync
+debug mode set to raise; the main paths print their syncs per step, the
+kernels' launches per step from the trace and the device's busy share,
+eager against compiled.  The kernel launch counts stay the eager runs':
+a graph's wrappers count only while it is captured.
+
 Phase 3 also checks selective_scan at falcon's prefill shape (B = 4,
 S = 2048, dI = 8192, N = 16, float32) and flash_attention at qwen's (B = 4,
 S = T = 2048, 20 heads of 128, bf16, causal), plus GQA, MQA, window,
@@ -71,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -590,6 +606,8 @@ def kernel_segment_sums(dev, rng):
                 f"segment_sum {what} differs from its plain version")
         work = zeros.clone()
         e = timed(lambda: segment_sum(work, seg, xb, vals))
+        pt = timed(lambda: rule_stats_scatter_ref(work, seg, xb, vals), n=10)
+        e.update(plain_ms=pt["ms"], plain_call_ms=pt["call_ms"])
         keep = (seg >= 0) & (seg < rows)
         idx = torch.where(keep, seg, rows).long()
         scratch = torch.zeros((rows + 1, k), device=dev)
@@ -602,7 +620,8 @@ def kernel_segment_sums(dev, rng):
                  bound_by=bound_by)
         out[what] = e
         log(f"rule_stats as segment_sum, {what} [{rows},1,1,{k}] B={n}: "
-            f"exact; device ms {e['ms']:.5f}, library (index_add_) "
+            f"exact; device ms {e['ms']:.5f}, plain {e['plain_ms']:.5f}, "
+            f"library (index_add_) "
             f"{e['library_ms']:.5f}, bound {bound_ms:.6f} ({bound_by}), "
             f"kernel/bound {e['ms'] / bound_ms:.1f}; call ms "
             f"{e['call_ms']:.5f}")
@@ -620,14 +639,15 @@ def run_pair(make_learner, batches, what):
     rec = Recording(make_learner())
     torch.cuda.synchronize()
     reset_launches()
-    res = PrequentialEvaluation(rec, batches).run()
+    res = PrequentialEvaluation(rec, batches, compiled=False).run()
     count = launches()
     torch.cuda.synchronize()
     plain = Recording(make_learner())
     with plain_kernels():
         reset_launches()
-        ref = PrequentialEvaluation(plain, batches).run()
+        ref = PrequentialEvaluation(plain, batches, compiled=False).run()
         require(sum(launches().values()) == 0, "plain run launched a kernel")
+    res.extra["metrics"] = rec.metrics
     for key in ("correct", "dropped", "n_nodes"):
         require(torch.equal(stacked(rec.metrics, key),
                             stacked(plain.metrics, key)),
@@ -709,12 +729,15 @@ def profile_steps(learner, state, batches, kernel=None, order=()):
         f"{sum(r[1] for r in rows) / n:.1f} device ops/step")
     for us, count, key in rows[:10]:
         log(f"  {us / n:9.2f} us/step  {count / n:5.2f}/step  {key[:90]}")
-    # the port's own kernels, in or out of the ten above
+    # the port's own kernels, in or out of the ten above, and the one-thread
+    # kernel that sets a conditional node's condition (graph_cond.cu)
     ours = {}
     for us, count, key in rows:
-        m = re.search(r"(\w+_(?:kernel|wgmma)\w*(?:<[^(]*>)?)\(", key)
+        m = re.search(r"(\w+_(?:kernel|wgmma|conditions)\w*(?:<[^(]*>)?)\(",
+                      key)
         if m and m.group(1).startswith(
-                (*VHT_KERNELS, "rule_stats", *LM_ARCHS.values())):
+                (*VHT_KERNELS, "rule_stats", *LM_ARCHS.values(),
+                 "set_conditions")):
             ours[m.group(1)] = {"us_per_step": us / n, "per_step": count / n}
     log("  the port's kernels per step: " + ", ".join(
         f"{k} {v['us_per_step']:.2f} us ({v['per_step']:.2f} launches)"
@@ -735,6 +758,91 @@ def profile_steps(learner, state, batches, kernel=None, order=()):
             "wall_us_per_step": wall_us / n, "busy_us_per_step": busy_us / n,
             "busy_share": busy_us / wall_us,
             "device_ops_per_step": sum(r[1] for r in rows) / n}
+
+
+@contextlib.contextmanager
+def no_syncs():
+    """The card's sync debug mode set to raise on any device-to-host sync,
+    around the replays of a captured step."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def run_compiled(make_learner, batches, eager, keys, what):
+    """The learner compiled, as a user runs it: PrequentialEvaluation (whose
+    default is one captured graph replayed per batch), then
+    JitEngine.run_stream on the bare learner (the first step eager, then
+    one graph).  Against ``eager``, the eager kernel run's result with its
+    per-batch metrics: the curve and the final state of the first, the
+    per-batch ``keys`` and the final state of the second, bit for bit.
+    Returns (us/batch, first batch's s: the capture and its warm-up)."""
+    import torch
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.core.evaluation import PrequentialEvaluation
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = PrequentialEvaluation(make_learner(), batches).run()
+    total_s = time.perf_counter() - t0
+    require(res.curve == eager.curve and res.metric == eager.metric,
+            f"{what} compiled: the curve differs from the eager run's")
+    require(same_state(res.extra["state"], eager.extra["state"]),
+            f"{what} compiled: the final state differs from the eager run's")
+    learner = make_learner()
+    eng = JitEngine()
+    carry, outs = eng.run_stream(learner, eng.init(learner),
+                                 [{"x": x, "y": y} for x, y in batches])
+    for key in keys:
+        require(torch.equal(outs["metrics"][key].cpu().view(torch.int32),
+                            stacked(eager.extra["metrics"], key)
+                            .view(torch.int32)),
+                f"{what} on JitEngine: per-batch {key} differs from the "
+                "eager run's")
+    require(same_state(carry["states"][type(learner).__name__.lower()],
+                       eager.extra["state"]),
+            f"{what} on JitEngine: the final state differs from the eager "
+            "run's")
+    us = 1e6 * batches[0][1].shape[0] / res.throughput
+    first_s = total_s - (len(batches) - 1) * us * 1e-6
+    log(f"{what} compiled: {us:.1f} us/batch {res.throughput:.0f} inst/s "
+        f"(first batch, with the capture: {first_s:.2f} s); curve, "
+        f"per-batch {', '.join(keys)} and final state bit for bit the eager "
+        "run's, through PrequentialEvaluation and JitEngine.run_stream")
+    return us, first_s
+
+
+def graph_profile(make_learner, state, batches, what):
+    """One captured step of the learner, from ``state``: its replays over
+    20 batches with syncs raising, the syncs per step counted again in the
+    warn mode (0), and a profile of 50 replays."""
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.core.pytree import tree_clone
+    from repro_torch.kernels import launches, reset_launches
+
+    learner = make_learner()
+    reset_launches()
+    # a learner whose step is the captured one
+    step = types.SimpleNamespace(step=compile_step(learner.step, state,
+                                                   *batches[0]))
+    captured = {k: v for k, v in launches().items() if v}
+    st = tree_clone(state)
+    with no_syncs():
+        for x, y in batches[:20]:
+            st, _ = step.step(st, x, y)
+    syncs = count_syncs(step, st, batches[:20])
+    require(syncs == 0, f"{what} compiled: {syncs} syncs per replay")
+    prof = profile_steps(step, st, batches[:50])
+    log(f"{what} compiled: {syncs:.2f} device-to-host syncs per step, "
+        f"{prof['device_ops_per_step']:.1f} device ops per step, busy "
+        f"{100 * prof['busy_share']:.1f} %; the wrappers called in the "
+        f"warm-up and the capture: {captured}")
+    return {"syncs_per_step": syncs, "profile": prof,
+            "wrapper_calls_at_capture": captured}
 
 
 def phase_main(dev, smi):
@@ -769,10 +877,38 @@ def phase_main(dev, smi):
     log(f"main path: {syncs:.2f} device-to-host syncs per step "
         "(VHT.step alone, torch sync debug mode)")
     prof = profile_steps(VHT(cfg, device=dev), tree_clone(st), batches[:50])
+
+    what = "main dense-1000 wok"
+    us_c, first_s = run_compiled(lambda: VHT(cfg, device=dev), batches, res,
+                                 ("correct", "dropped", "n_nodes"), what)
+    graph = graph_profile(lambda: VHT(cfg, device=dev), st, batches, what)
+    compare_paths(what, (us, syncs, prof), (us_c, graph), smi)
     return {"us_per_batch": us, "inst_per_s": res.throughput,
             "acc": res.metric, "n_nodes": int(st["n_nodes"]),
             "launches": count, "syncs_per_step": syncs, "profile": prof,
-            "kernels_on_path": on_path}
+            "kernels_on_path": on_path,
+            "compiled": {"us_per_batch": us_c, "first_batch_s": first_s,
+                         **graph}}
+
+
+def compare_paths(what, eager, compiled, smi):
+    """One line: a main path eager against compiled."""
+    (us, syncs, prof), (us_c, graph) = eager, compiled
+    g = graph["profile"]
+
+    def kernels(p):
+        return ", ".join(f"{k.split('<')[0]} {v['per_step']:.2f}"
+                         for k, v in p["port_kernels"].items())
+
+    log(f"{what}, eager against compiled: {us:.1f} against {us_c:.1f} "
+        f"us/batch; {syncs:.2f} against {graph['syncs_per_step']:.2f} syncs "
+        f"per step; device busy {prof['busy_us_per_step']:.1f} against "
+        f"{g['busy_us_per_step']:.1f} us per step, {100 * prof['busy_share']:.1f}"
+        f" against {100 * g['busy_share']:.1f} % of the wall; "
+        f"{prof['device_ops_per_step']:.1f} against "
+        f"{g['device_ops_per_step']:.1f} device ops per step; the port's "
+        f"kernels' launches per step in the trace: {kernels(prof)} against "
+        f"{kernels(g)}; on {smi}")
 
 
 def kernels_on_path(st, xb, y, leaf, smi):
@@ -798,8 +934,10 @@ def kernels_on_path(st, xb, y, leaf, smi):
     steps = route_steps(*(a[None] for a in tables), xb, DEPTH)
     work = st["stats"].clone()
     jj = torch.arange(M_ATTRS, device=xb.device)
-    cells = int(torch.unique(((leaf.long()[:, None] * M_ATTRS + jj) * BINS
-                              + xb.long()) * C + y.long()[:, None]).numel())
+    flat = (((leaf.long()[:, None] * M_ATTRS + jj) * BINS + xb.long()) * C
+            + y.long()[:, None]).reshape(-1)
+    cells = int(torch.unique(flat).numel())
+    vals = ones[:, None].expand(B, M_ATTRS).reshape(-1).contiguous()
     out = {}
     for name, fn, plain, moved, ops in (
             ("tree_route",
@@ -816,13 +954,19 @@ def kernels_on_path(st, xb, y, leaf, smi):
                      "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
                      "bytes": moved, "ops": ops, "bound_ms": bound_ms,
                      "bound_by": bound_by}
+    # the library call that computes the same update (a yardstick only)
+    lt = timed(lambda: work.view(-1).index_put_((flat,), vals,
+                                                accumulate=True))
+    out["vht_stats"].update(library_ms=lt["ms"],
+                            library_call_ms=lt["call_ms"])
     out["vht_stats"]["leaves"] = int(torch.unique(leaf).numel())
     out["tree_route"]["n_nodes"] = int(st["n_nodes"])
     log(f"on the main path's inputs ({int(st['n_nodes'])}-node tree, the "
         f"last batch in {out['vht_stats']['leaves']} leaves; vht_stats "
         f"bit-identical to its plain version): " + "; ".join(
-            f"{k} device ms {v['ms']:.5f} (plain {v['plain_ms']:.5f}, bound "
-            f"{v['bound_ms']:.3g} {v['bound_by']}), call ms {v['call_ms']:.5f}"
+            f"{k} device ms {v['ms']:.5f} (plain {v['plain_ms']:.5f}, library "
+            f"{v.get('library_ms')}, bound {v['bound_ms']:.3g} "
+            f"{v['bound_by']}), call ms {v['call_ms']:.5f}"
             for k, v in out.items()) + f" on {smi}")
     return out
 
@@ -842,13 +986,18 @@ def phase_paths(dev):
         batches = stream(m, n_batches, dev)
         for name, kw in variants.items():
             cfg = VHTConfig(tree_config(m, **kw))
-            _, count, us = run_pair(lambda: VHT(cfg, device=dev), batches,
-                                    f"dense-{m} {name}")
-            out[f"dense-{m} {name}"] = {"us_per_batch": us, "launches": count}
+            what = f"dense-{m} {name}"
+            res, count, us = run_pair(lambda: VHT(cfg, device=dev), batches,
+                                      what)
+            us_c, _ = run_compiled(lambda: VHT(cfg, device=dev), batches, res,
+                                   ("correct", "dropped", "n_nodes"), what)
+            out[what] = {"us_per_batch": us, "launches": count,
+                         "compiled_us_per_batch": us_c}
 
     batches = stream(200, n_batches, dev)
     payloads = [{"x": x, "y": y} for x, y in batches]
     cfg = VHTConfig(tree_config(200))
+    kernel_runs = {}
     for engine in (LocalEngine(), StreamEngine()):
         ename = type(engine).__name__
         topo = build_vht_topology(cfg, device=dev)
@@ -886,7 +1035,44 @@ def phase_paths(dev):
             f"{us:.1f} us/batch launches {count}; same as plain run")
         out[f"topology dense-200 {ename}"] = {"us_per_batch": us,
                                               "launches": count}
+        kernel_runs[ename] = (states, pred)
+    out["topology dense-200 JitEngine"] = jit_topology(
+        cfg, payloads, kernel_runs["StreamEngine"], dev)
     return out
+
+
+def jit_topology(cfg, payloads, stream_run, dev):
+    """The MA/LS topology on JitEngine (the first step eager, then one
+    captured graph per step) against the StreamEngine's kernel run: the
+    predictions and every state leaf, bit for bit; twice, the second time
+    replaying the graph the first captured."""
+    import torch
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.ml.vht import build_vht_topology
+
+    want_states, want_pred = stream_run
+    eng = JitEngine()
+    topo = build_vht_topology(cfg, device=dev)
+    init = eng.init(topo)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, outs = eng.run_stream(topo, init, payloads)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        require(torch.equal(outs["prediction"]["pred"], want_pred),
+                "topology JitEngine: predictions differ from the "
+                "StreamEngine's")
+        for name, st in want_states.items():
+            require(same_state(final["states"][name], st),
+                    f"topology JitEngine: {name} state differs from the "
+                    "StreamEngine's")
+    us = times[1] / len(payloads) * 1e6
+    log(f"topology dense-200 JitEngine: {us:.1f} us/batch (first run, with "
+        f"the capture: {times[0]:.2f} s); predictions and every state leaf "
+        "bit for bit the StreamEngine's")
+    return {"us_per_batch": us, "first_run_s": times[0]}
 
 
 def rules_stream(name, n_batches, dev):
@@ -933,15 +1119,16 @@ def run_rules(make_learner, batches, what):
     rec = Recording(make_learner())
     torch.cuda.synchronize()
     reset_launches()
-    res = PrequentialEvaluation(rec, batches).run()
+    res = PrequentialEvaluation(rec, batches, compiled=False).run()
     count = launches()
-    again = PrequentialEvaluation(Recording(make_learner()), batches).run()
+    again = PrequentialEvaluation(Recording(make_learner()), batches,
+                                  compiled=False).run()
     require(same_state(res.extra["state"], again.extra["state"]),
             f"{what}: two runs with the kernel differ")
     plain = Recording(make_learner())
     with plain_kernels():
         reset_launches()
-        ref = PrequentialEvaluation(plain, batches).run()
+        ref = PrequentialEvaluation(plain, batches, compiled=False).run()
         require(sum(launches().values()) == 0, "plain run launched a kernel")
     for key in ("abs_err", "sq_err", "n_rules"):
         require(torch.equal(stacked(rec.metrics, key),
@@ -963,6 +1150,7 @@ def run_rules(make_learner, batches, what):
         f"{int(st['n_feats'])} {us:.1f} us/batch {res.throughput:.0f} "
         f"inst/s launches {count}; same as a second run and as the plain "
         "run")
+    res.extra["metrics"] = rec.metrics
     return res, count, us
 
 
@@ -986,6 +1174,12 @@ def phase_rules(dev, smi):
             out[what] = {"us_per_batch": us, "inst_per_s": res.throughput,
                          "mae": res.metric, "launches": count,
                          "n_created": int(res.extra["state"]["n_created"])}
+            if stream_name == "waveform":
+                us_c, first_s = run_compiled(
+                    lambda: mk(rc, device=dev), batches, res,
+                    ("abs_err", "sq_err", "n_rules"), what)
+                out[what]["compiled"] = {"us_per_batch": us_c,
+                                         "first_batch_s": first_s}
             if what != "waveform-40 VAMR":
                 continue
             st = res.extra["state"]
@@ -1001,6 +1195,11 @@ def phase_rules(dev, smi):
             log(f"amrules main path waveform-40 VAMR B={B} x {RULES_BATCHES}:"
                 f" {us:.1f} us/batch, {res.throughput:.0f} instances/s on "
                 f"{smi}")
+            graph = graph_profile(lambda: VAMR(rc, device=dev), st, batches,
+                                  what)
+            out[what]["compiled"].update(graph)
+            compare_paths(f"amrules main path {what}", (us, syncs, prof),
+                          (out[what]["compiled"]["us_per_batch"], graph), smi)
     return out
 
 
@@ -1210,7 +1409,9 @@ def run_lm(arch, dev, smi):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launches, reset_launches
-    from repro_torch.launch.serve import generate
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.launch.serve import (decode_carry, generate,
+                                          make_decode_step)
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import LanguageModel
 
@@ -1266,25 +1467,51 @@ def run_lm(arch, dev, smi):
         f"TTFT {ttft_ms:.1f} ms (median of 3: {[round(t, 1) for t in ttft]})"
         f" on {smi}")
 
-    # serve: prompt replay into the caches, then greedy decode
+    # serve: prompt replay into the caches, then greedy decode; the same
+    # decode step eagerly, then through one captured graph
     prompt = prompts[:, :SERVE_PROMPT]
-    res = generate(model, prompt, SERVE_GEN)
     want = prefill(model, {"tokens": prompt})
-    gap = logits_check(res["prefill_logits"][:, -1], want, V,
-                       f"{arch}: prompt replay vs prefill step")
-    tokens = res["tokens"]
-    require(tokens.shape == (LM_B, SERVE_GEN) and int(tokens.min()) >= 0
-            and int(tokens.max()) < V, f"{arch}: generated tokens {tokens}")
-    decode_ms = res["decode_s"] / (SERVE_GEN - 1) * 1e3
-    tok_s = LM_B * (SERVE_GEN - 1) / res["decode_s"]
-    log(f"{arch} serve B={LM_B} prompt {SERVE_PROMPT} gen {SERVE_GEN}: "
-        f"replay {res['prefill_s']:.2f} s, decode {decode_ms:.2f} ms per "
-        f"token step, {tok_s:.1f} tokens/s; replay vs prefill step: max abs diff"
-        f" {gap['max_abs_diff']:.4g} (atol {gap['atol']:.4g} + rtol 0.05, "
-        f"largest |logit| {gap['max_abs_logit']:.3f}); sample "
-        f"{tokens[0, :8].tolist()} on {smi}")
+    runs = {}
+    for mode in ("eager", "graph"):
+        res = generate(model, prompt, SERVE_GEN, compiled=mode == "graph")
+        gap = logits_check(res["prefill_logits"][:, -1], want, V,
+                           f"{arch} {mode}: prompt replay vs prefill step")
+        tokens = res["tokens"]
+        require(tokens.shape == (LM_B, SERVE_GEN) and int(tokens.min()) >= 0
+                and int(tokens.max()) < V,
+                f"{arch} {mode}: generated tokens {tokens}")
+        decode_ms = res["decode_s"] / (SERVE_GEN - 1) * 1e3
+        tok_s = LM_B * (SERVE_GEN - 1) / res["decode_s"]
+        runs[mode] = {"tokens": tokens, "logits": res["prefill_logits"],
+                      "replay_vs_prefill": gap, "replay_s": res["prefill_s"],
+                      "capture_s": res["compile_s"],
+                      "decode_ms_per_step": decode_ms, "tokens_per_s": tok_s}
+        log(f"{arch} serve {mode} B={LM_B} prompt {SERVE_PROMPT} gen "
+            f"{SERVE_GEN}: capture {res['compile_s']:.2f} s, replay "
+            f"{res['prefill_s']:.2f} s, decode {decode_ms:.2f} ms per token "
+            f"step, {tok_s:.1f} tokens/s; replay vs prefill step: max abs "
+            f"diff {gap['max_abs_diff']:.4g} (atol {gap['atol']:.4g} + rtol "
+            f"0.05, largest |logit| {gap['max_abs_logit']:.3f}); sample "
+            f"{tokens[0, :8].tolist()} on {smi}")
+    eager, graph = runs.pop("eager"), runs.pop("graph")
+    require(torch.equal(graph.pop("tokens"), eager.pop("tokens")),
+            f"{arch}: the graph's {SERVE_GEN} tokens differ from the eager "
+            "decode's")
+    graph_gap = logits_check(graph.pop("logits")[:, -1],
+                             eager.pop("logits")[:, -1], V,
+                             f"{arch}: graph replay vs eager replay")
+    graph["vs_eager"] = graph_gap
+    log(f"{arch} serve graph against eager: the {SERVE_GEN} tokens equal; "
+        f"last replay logits max abs diff {graph_gap['max_abs_diff']:.4g} "
+        f"(gate: atol {graph_gap['atol']:.4g} + rtol 0.05); decode "
+        f"{eager['decode_ms_per_step']:.2f} against "
+        f"{graph['decode_ms_per_step']:.2f} ms per step, "
+        f"{eager['tokens_per_s']:.1f} against {graph['tokens_per_s']:.1f} "
+        f"tokens/s on {smi}")
 
-    # device busy share: one prefill, and 8 decode steps from fresh caches
+    # device busy share: one prefill, and PROFILE_DECODE decode steps from
+    # fresh caches, eager and replayed (after PROFILE_DECODE replays with
+    # syncs raising)
     prof_prefill = profile_calls(lambda: prefill(model, batch), 1)
     cache = model.init_cache(LM_B, PROFILE_DECODE)
     serve_step = make_serve_step(cfg)
@@ -1295,20 +1522,37 @@ def run_lm(arch, dev, smi):
         state["i"] += 1
 
     prof_decode = profile_calls(step, PROFILE_DECODE)
-    for what, p in (("prefill", prof_prefill), ("decode step", prof_decode)):
+    carry = decode_carry(model.init_cache(LM_B, 2 * PROFILE_DECODE),
+                         prompt[:, :1])
+    box = {"step": compile_step(make_decode_step(model), carry),
+           "carry": carry}
+
+    def replay():
+        box["carry"], _ = box["step"](box["carry"])
+
+    with no_syncs():
+        for _ in range(PROFILE_DECODE):
+            replay()
+    prof_graph = profile_calls(replay, PROFILE_DECODE)
+    for what, p in (("prefill", prof_prefill), ("decode step", prof_decode),
+                    ("decode step replayed", prof_graph)):
         log(f"{arch} {what}: wall {p['wall_ms']:.2f} ms, device busy "
             f"{p['busy_ms']:.2f} ms ({100 * p['busy_share']:.1f} %), "
             f"{p['device_ops_per_call']:.0f} device ops; top: "
             + "; ".join(f"{t['kernel'][:40]} {t['us_per_call']:.0f} us"
                         for t in p["top"][:4]) + f" on {smi}")
-    replay_s = res["prefill_s"]
-    del model, cache, res
+    # the graph and its pool go before the next model loads
+    del model, cache, carry, box
     torch.cuda.empty_cache()
+    graph["profile_decode"] = prof_graph
     return {"launches": count, "n_params": n_params, "ttft_ms": ttft_ms,
             "ttft_runs_ms": ttft, "plain_vs_kernel": err, "plain_s": plain_s,
-            "replay_vs_prefill": gap, "replay_s": replay_s,
-            "decode_ms_per_step": decode_ms, "tokens_per_s": tok_s,
-            "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+            "replay_vs_prefill": eager["replay_vs_prefill"],
+            "replay_s": eager["replay_s"],
+            "decode_ms_per_step": eager["decode_ms_per_step"],
+            "tokens_per_s": eager["tokens_per_s"],
+            "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+            "graph": graph}
 
 
 def phase_lm(dev, smi):

@@ -1,7 +1,7 @@
 """Execution engines: the DSPE-adapter layer of the paper, in PyTorch.
 
-Port of two engines of ``repro/core/engines.py``; the same Topology runs on
-both:
+Port of three engines of ``repro/core/engines.py``; the same Topology runs
+on each:
 
   LocalEngine   -- one micro-batch at a time, feedback delivered within the
                    same step until quiescence (split feedback delay D = 0):
@@ -13,8 +13,12 @@ both:
                    PyTorch runs it eagerly, step by step; the outputs are
                    stacked on a leading step axis as the JAX scan stacks
                    them.
+  JitEngine     -- the same semantics with each step after the first one
+                   captured CUDA graph (``core.compiled``): the port's
+                   counterpart of the JAX ``JitEngine``.  ``StreamEngine``
+                   stays as its eager reference.
 
-Both accept a Topology or a bare learner (``init``/``step``), which is
+Each accepts a Topology or a bare learner (``init``/``step``), which is
 wrapped in a one-processor topology.  ``run_stream`` clones the states it
 is given first, because processors update large tensors in place.
 """
@@ -25,6 +29,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.compiled import compile_step
 from repro_torch.core.pytree import tree_clone, tree_leaves, tree_map
 from repro_torch.core.topology import Topology, build_learner_topology
 
@@ -173,6 +178,75 @@ class StreamEngine:
         for payload in _unstack_payloads(payloads):
             carry, out = self.step(topology, carry, payload)
             outs.append(out)
+        if not outs:
+            return carry, {}
+        return carry, tree_map(lambda *xs: torch.stack(xs), *outs)
+
+
+class JitEngine:
+    """The JAX package's ``JitEngine`` (``step`` and the monolithic
+    ``run_stream``): the whole topology step with feedback edges delivered
+    next step.  The first step, with no feedback yet, runs eagerly and
+    primes the carry, as the JAX engine's ``_prime_first_step`` runs it
+    through its plain jitted step.  Every later step replays one captured
+    topology step (``core.compiled.compile_step``, captured at the first of
+    them and kept per topology), whose gates are conds on the device; on
+    the CPU that step runs eagerly in its capturable form.
+
+    ``step`` returns the captured step's own carry, which the next step of
+    the same topology advances in place (what ``donate_argnums`` does in
+    the JAX engine); ``run_stream`` returns a copy."""
+
+    def __init__(self):
+        self._eager = StreamEngine()
+        # id -> (the object, so the id stays its own, and what it maps to)
+        self._topologies: dict[int, tuple] = {}
+        self._compiled: dict[int, tuple] = {}
+
+    def _topology(self, topology) -> Topology:
+        if isinstance(topology, Topology):
+            return topology
+        if id(topology) not in self._topologies:
+            self._topologies[id(topology)] = (
+                topology, build_learner_topology(topology))
+        return self._topologies[id(topology)][1]
+
+    def init(self, topology, key=None):
+        return self._eager.init(self._topology(topology), key)
+
+    def step(self, topology, carry, source_payload):
+        topology = self._topology(topology)
+        if carry["feedback"] is None:
+            return self._eager.step(topology, carry, source_payload)
+        entry = self._compiled.get(id(topology))
+        if entry is None:
+            entry = (topology, compile_step(
+                lambda c, p: self._eager.step(topology, c, p),
+                carry, source_payload))
+            self._compiled[id(topology)] = entry
+        return entry[1](carry, source_payload)
+
+    def run_stream(self, topology, carry, payloads, *, chunk_len=None,
+                   on_chunk=None, collect_outputs: bool = True):
+        """Every micro-batch of ``payloads`` (a list of per-step payloads,
+        or a dict stacked on a leading step axis).  Returns (carry, outputs
+        stacked on the leading axis), as the JAX ``JitEngine.run_stream``
+        does; ``carry`` is cloned first and left as it was.  The chunked
+        runtime's knobs (``chunk_len``, ``on_chunk``, ``collect_outputs``)
+        are not ported yet and raise."""
+        if chunk_len is not None or on_chunk is not None or not collect_outputs:
+            raise NotImplementedError(
+                "chunk_len, on_chunk and collect_outputs belong to the "
+                "chunked runtime (ChunkedStream, run_stream_chunked), which "
+                "repro_torch does not have yet")
+        topology = self._topology(topology)
+        _require_no_boundaries(topology)
+        carry = tree_clone(carry)
+        outs = []
+        for payload in _unstack_payloads(payloads):
+            carry, out = self.step(topology, carry, payload)
+            outs.append(tree_clone(out))
+        carry = tree_clone(carry)
         if not outs:
             return carry, {}
         return carry, tree_map(lambda *xs: torch.stack(xs), *outs)

@@ -14,6 +14,7 @@ import time
 
 import torch
 
+from repro_torch.core.compiled import compile_step
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.core.topology import Task
 
@@ -58,24 +59,33 @@ def _sync(t):
 class PrequentialEvaluation(Task):
     """Test-then-train over ``stream`` (an iterable of (x, y) batches).
 
-    As in the JAX package, the first batch is run but left out of the
-    metric, the curve and the clock: there it pays for compilation, here
-    for building the kernels and first launches."""
+    The learner's step is compiled (``core.compiled.compile_step``), as the
+    JAX package runs ``jax.jit(learner.step)``: on the card one captured
+    CUDA graph replayed per batch, on the CPU its capturable form run
+    eagerly.  ``compiled=False`` runs ``learner.step`` as it is.  As in the
+    JAX package, the first batch is run but left out of the metric, the
+    curve and the clock: there it pays for the capture (and for building
+    the kernels), and the per-batch metric reads stay."""
 
-    def __init__(self, learner, stream, *, n_batches: int | None = None):
+    def __init__(self, learner, stream, *, n_batches: int | None = None,
+                 compiled: bool = True):
         self.learner = learner
         self.stream = stream
         self.n_batches = n_batches
+        self.compiled = compiled
 
     def run(self) -> PrequentialResult:
         state = self.learner.init()
+        step = None if self.compiled else self.learner.step
         curve = []
         correct = abse = seen = 0.0
         t0 = None
         for i, (x, y) in enumerate(self.stream):
             if self.n_batches is not None and i >= self.n_batches:
                 break
-            state, m = self.learner.step(state, x, y)
+            if step is None:
+                step = compile_step(self.learner.step, state, x, y)
+            state, m = step(state, x, y)
             if i == 0:
                 _sync(m["seen"])
                 t0 = time.perf_counter()

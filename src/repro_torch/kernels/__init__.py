@@ -4,7 +4,12 @@ in ``src/repro_torch/csrc/<name>.cu``.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors.  Each counts its launches in ``<wrapper>.launches``, so a
-run can show that it went through the kernels.
+run can show that it went through the kernels.  The counts are of calls
+from Python: in a step captured as a CUDA graph (``core.compiled``) a
+wrapper counts once while the step is captured (and once more in the
+warm-up before it), and a replay counts nothing, nor does a count say
+whether a kernel inside a conditional node ran.  A graph run's launches
+are read from the device trace (``chip_smoke.py``).
 """
 
 from repro_torch.kernels.flash_attention.ops import flash_attention

@@ -30,9 +30,12 @@ def make_prefill_step(cfg):
 
 def make_serve_step(cfg):
     """One greedy decode step: (next token [B,1] int32, caches updated in
-    place)."""
+    place).  ``index``, the token's absolute position, is a 0-dim integer
+    tensor on the model's device, as the JAX step traces it (or a Python
+    int); the step reads nothing on the host, so it captures into a CUDA
+    graph (``launch.serve``)."""
 
-    def serve_step(model, cache, token, index: int):
+    def serve_step(model, cache, token, index):
         _same_config(model, cfg)
         logits, cache = model.decode_step(cache, token, index)
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]

@@ -25,8 +25,10 @@ XLA's CPU scatter does, and the whole-batch sums through ``batch_sum``,
 which takes XLA's CPU reduction order on the same kernel.  No sum on
 the path uses atomics, so two runs of a stream on the card are identical.
 The ``lax.cond`` gates of the expansion checks are Python ``if``s on a
-value read from the device.  ``step`` leaves the state it is given as it
-was.
+value read from the device in the eager step, and ``compiled.cond``s (a
+conditional node of the step's CUDA graph) in its capturable form, under
+``core.compiled.compile_step``.  ``step`` leaves the state it is given as
+it was.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import math
 
 import torch
 
+from repro_torch.core import compiled
 from repro_torch.core.xla_numerics import cumsum, fma
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
@@ -353,16 +356,25 @@ class AMRules:
 
     def _gated_decision(self, stats, gate):
         """The SDR cumsum + top-k over [..., m, bins] runs only when
-        ``gate`` holds (one read from the device) -- exact, because the
-        caller uses the decision only under a mask that is all-False
-        whenever the gate is closed."""
+        ``gate`` holds -- exact, because the caller uses the decision only
+        under a mask that is all-False whenever the gate is closed.  The
+        eager step reads ``gate`` from the device; the capturable one
+        decides it there (``compiled.cond``)."""
         rc = self.rc
-        if rc.gate_expansions and not bool(gate):
-            lead = stats.shape[:-3]
-            z = torch.zeros(lead, dtype=i32, device=stats.device)
+
+        def open_(st):
+            return _expansion_decision(st[..., CNT], st[..., SUM],
+                                       st[..., SQ], rc)
+
+        def closed(st):
+            z = torch.zeros(st.shape[:-3], dtype=i32, device=st.device)
             return z.to(torch.bool), z, z, z
-        return _expansion_decision(
-            stats[..., CNT], stats[..., SUM], stats[..., SQ], rc)
+
+        if not rc.gate_expansions:
+            return open_(stats)
+        if compiled.capturable():
+            return compiled.cond(gate, open_, closed, stats)
+        return open_(stats) if bool(gate) else closed(stats)
 
     def _try_expand(self, state):
         """Rules with >= n_min fresh updates attempt an SDR expansion."""

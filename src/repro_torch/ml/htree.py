@@ -16,9 +16,12 @@ a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
 runs its plain version.
 
 Where the JAX package gates work with ``lax.cond`` (``decide_splits``,
-``gated_check``, ``apply_splits``), the port branches in Python on a value
-read from the device, so each gate costs one device-to-host sync.  The
-results are those of the ungated code either way.
+``gated_check``, ``apply_splits``), the port has two forms.  Eagerly it
+branches in Python on a value read from the device, so each gate costs one
+device-to-host sync.  In a step's capturable form (under
+``core.compiled.compile_step``) each gate is a ``compiled.cond``: a
+conditional node of the step's CUDA graph, the predicate read on the
+device.  The results are those of the ungated code either way.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import compiled
 from repro_torch.device import resolve_device
 from repro_torch.kernels.split_gain.ops import NEG, split_gain
 from repro_torch.kernels.tree_route.ops import tree_route
@@ -234,7 +238,14 @@ def gated_check(n_due, k, gathered, full, idle, operand):
     """The exact split-check gate shared by decide_splits and the LS
     processor: skip entirely when nothing is due, reduce a gathered row
     tile when the due set fits k, fall back to the full reduction
-    otherwise.  Reading ``n_due`` syncs with the device."""
+    otherwise.  In a capturable step, two nested conds on the device, as
+    the JAX package nests its lax.conds; eagerly, reading ``n_due`` syncs
+    with the device."""
+    if compiled.capturable():
+        return compiled.cond(
+            n_due > 0,
+            lambda op: compiled.cond(n_due <= k, gathered, full, op),
+            idle, operand)
     n = int(n_due)
     if n <= 0:
         return idle(operand)
@@ -293,13 +304,37 @@ def apply_splits(state, split_mask, best_attr, best_bin, tc: TreeConfig,
     distributions directly (the MA processor receives them in the
     local-result event and holds no statistics tensor); otherwise they are
     derived from state["stats"].  With tc.gate_splits the whole rewiring is
-    skipped on steps where no leaf splits, the common case in steady state
-    (one device-to-host sync to find out)."""
-    if tc.gate_splits and not bool(split_mask.any()):
+    skipped on steps where no leaf splits, the common case in steady state:
+    eagerly, one device-to-host sync finds out; in a capturable step a cond
+    decides on the device, and only the leaves the rewiring replaces (not
+    the statistics, which it clears in place) pass through it."""
+    if not tc.gate_splits:
+        return _apply_splits_impl(state, split_mask, best_attr, best_bin, tc,
+                                  child_counts)
+    if compiled.capturable():
+        def split(_):
+            st, do = _apply_splits_impl(state, split_mask, best_attr,
+                                        best_bin, tc, child_counts)
+            return {k: st[k] for k in _SPLIT_KEYS}, do
+
+        def keep(kept):
+            return kept, torch.zeros(tc.max_nodes, dtype=torch.bool,
+                                     device=split_mask.device)
+
+        new, do = compiled.cond(split_mask.any(), split, keep,
+                                {k: state[k] for k in _SPLIT_KEYS})
+        return {**state, **new}, do
+    if not bool(split_mask.any()):
         return state, torch.zeros(tc.max_nodes, dtype=torch.bool,
                                   device=split_mask.device)
     return _apply_splits_impl(state, split_mask, best_attr, best_bin, tc,
                               child_counts)
+
+
+# the leaves _apply_splits_impl replaces (it clears the split leaves'
+# statistics in place)
+_SPLIT_KEYS = ("split_attr", "split_bin", "children", "class_counts",
+               "depth", "since_attempt", "n_nodes", "n_splits")
 
 
 def _apply_splits_impl(state, split_mask, best_attr, best_bin, tc: TreeConfig,

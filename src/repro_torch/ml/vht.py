@@ -151,7 +151,7 @@ class VHT:
                         torch.zeros(1, dtype=torch.bool, device=dev)])
         bx[write_idx] = xs
         by[write_idx] = ys
-        bv[write_idx] = True
+        bv.index_fill_(0, write_idx, True)   # a scalar, not a host tensor
         state["buf_x"], state["buf_y"], state["buf_valid"] = bx[:Z], by[:Z], bv[:Z]
         state["buf_n"] = (state["buf_n"] + torch.clamp(k, max=Z)) % max(Z, 1)
         return state

@@ -137,8 +137,11 @@ class Attention(ParamModule):
         flash_attention kernel, causal, within ``cfg.window`` when it is
         set; returns (y, None).  With a cache ({"k",
         "v"}: [B,W,K,hd], a rolling buffer when W is the window) and the
-        absolute position ``index`` (a Python int) of the one new token:
-        writes k, v at index % W in place and returns (y, cache)."""
+        absolute position ``index`` of the first new token (a 0-dim integer
+        tensor on x's device, as JAX traces it, or a Python int): writes
+        k, v at (index + s) % W in place and returns (y, cache).  Nothing
+        here reads the index on the host, so a decode step captures into a
+        CUDA graph that advances the index on the device."""
         cfg = self.cfg
         B, S, _ = x.shape
         q, k, v = _proj(x, self.wq), _proj(x, self.wk), _proj(x, self.wv)
@@ -151,10 +154,12 @@ class Attention(ParamModule):
         wo = self.wo.reshape(-1, self.wo.shape[-1])
         if cache is not None:
             W = cache["k"].shape[1]
-            wp = index % W
-            cache["k"][:, wp:wp + S] = k
-            cache["v"][:, wp:wp + S] = v
-            valid = torch.arange(W, device=x.device) < min(index + 1, W)
+            index = torch.as_tensor(index, device=x.device)
+            at = (index + torch.arange(S, device=x.device)) % W
+            cache["k"].index_copy_(1, at, k)
+            cache["v"].index_copy_(1, at, v)
+            valid = torch.arange(W, device=x.device) < torch.clamp(
+                index + 1, max=W)
             out = decode_attention(q, cache["k"], cache["v"], valid)
             return out.reshape(B, S, -1) @ wo, cache
         out = flash_attention(q, k, v, causal=True, window=cfg.window)

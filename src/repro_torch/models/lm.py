@@ -120,7 +120,7 @@ class LanguageModel(nn.Module):
     ``forward(tokens)`` runs the full sequence through the kernels and
     returns (logits [B,S,padded_vocab] f32, aux); ``decode_step(cache,
     token, index)`` runs one token against the caches, which it updates in
-    place."""
+    place, and reads nothing on the host."""
 
     def __init__(self, cfg, params):
         super().__init__()
@@ -169,12 +169,15 @@ class LanguageModel(nn.Module):
             x, _ = blk(x, positions=positions)
         return x, torch.zeros((), dtype=f32, device=x.device)
 
-    def decode_step(self, cache, token, index: int):
+    def decode_step(self, cache, token, index):
         """One decode step.  token: [B,1] int; index: the absolute position
-        of the token.  Returns (logits [B,1,V], cache), the caches written
-        in place."""
+        of the token, a 0-dim integer tensor on the model's device (as the
+        JAX package traces it; ``launch.serve`` advances it on the device)
+        or a Python int.  Returns (logits [B,1,V], cache), the caches
+        written in place."""
         x = self._embed(token)
-        positions = torch.full((1, 1), index, device=x.device)
+        index = torch.as_tensor(index, device=x.device)
+        positions = index.reshape(1, 1)
         ((name, _, _),) = stacks(self.cfg)
         for blk, c in zip(self.body, cache[name]):
             x, _ = blk(x, positions=positions, cache=c, index=index)

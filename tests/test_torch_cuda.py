@@ -3,7 +3,9 @@ the card, at the main paths' shapes (VHT: B = 512, m = 1000, N = 255,
 bins = 8, C = 2; AMRules: [65, 40, 8, 3], B = 512; the LM prefill:
 selective_scan at B = 4, S = 2048, dI = 8192, N = 16, flash_attention at
 B = 4, S = 2048, 20 heads of 128) and at small shapes, and the LM SMOKE
-models on the card against their plain runs.  Every test here is marked
+models on the card against their plain runs; and the compiled steps
+(core/compiled.py) as CUDA graphs against the eager steps, bit for bit,
+with no sync in any replay.  Every test here is marked
 ``cuda`` and skips without a CUDA device; the file imports nothing of JAX,
 so it runs where JAX is not installed:
 
@@ -630,3 +632,180 @@ def test_lm_smoke_on_the_card_equals_its_plain_run(cuda, arch, kernel):
         outs.append(step[:, 0])
     torch.testing.assert_close(_shifted(torch.stack(outs, 1), V),
                                _shifted(logits, V), rtol=0.05, atol=0.1)
+
+
+# ------------------------------------------------ compiled steps (graphs)
+
+def _replays_without_syncs(step, state, batches):
+    """Every batch through ``step``, the card's sync debug mode set to
+    raise on any sync; per-step metrics cloned, as the next replay
+    overwrites them."""
+    out = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x, y in batches:
+            state, m = step(state, x, y)
+            out.append({k: v.clone() for k, v in m.items()})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return state, {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+
+def _eager_run(learner, batches):
+    state, out = learner.init(), []
+    for x, y in batches:
+        state, m = learner.step(state, x, y)
+        out.append(m)
+    return state, {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+
+def _assert_bits_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(_bits(got[k]), _bits(want[k])), k
+
+
+@pytest.mark.cuda
+def test_cond_node_runs_only_the_branch_taken(cuda):
+    """A captured step with nested conds (csrc/graph_cond.cu): each replay
+    gives the branch its predicate picks on the device, the branches'
+    kernels run only when taken, and the state advances in place."""
+    from repro_torch.core.compiled import compile_step, cond
+
+    def fn(state, x):
+        s = x.sum()
+
+        def big(v):
+            return cond(s > 10, lambda u: (torch.sort(u * 2).values[:4],),
+                        lambda u: (u[:4] * 10,), v)
+
+        out = cond(s > 0, big, lambda v: (v[:4] * 3,), x)
+        return {"n": state["n"] + 1, "last": out[0]}, out[0]
+
+    state = {"n": torch.zeros((), dtype=torch.int32, device=cuda),
+             "last": torch.zeros(4, device=cuda)}
+    x = torch.linspace(-1, 1, 100, device=cuda)
+    step = compile_step(fn, state, x)
+    st = state
+    for n, shift in enumerate((1.0, 0.05, -1.0, 0.5, 0.05)):
+        xs = torch.linspace(-1, 1, 100, device=cuda) + shift
+        st, out = step(st, xs)
+        s = float(xs.sum())
+        want = (torch.sort(xs * 2).values[:4] if s > 10 else
+                xs[:4] * 10 if s > 0 else xs[:4] * 3)
+        assert torch.equal(out, want) and torch.equal(st["last"], want)
+        assert int(st["n"]) == n + 1
+    assert int(state["n"]) == 0                 # the example is left as it was
+
+
+def _vht_batches(cuda, m, n):
+    from repro_torch.data.generators import RandomTreeGenerator
+    from repro_torch.data.pipeline import StreamPipeline
+    gen = RandomTreeGenerator(n_cat=m // 2, n_num=m - m // 2, depth=8,
+                              device=cuda)
+    return list(StreamPipeline(gen, batch=512, n_batches=n, n_bins=8,
+                               device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["local", "wok", "wk256"])
+def test_compiled_vht_step_bit_identical_to_eager(cuda, variant):
+    """The VHT step captured as a graph (its gates conditional nodes)
+    against the eager step with the kernels, on dense-200: every per-batch
+    metric and state leaf bit for bit, no sync in any replay.  A check tile
+    of 2 makes the full fallback of the split check run too."""
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import VHT, VHTConfig
+    kw = {"local": {}, "wok": {"split_delay": 4},
+          "wk256": {"split_delay": 4, "buffer_size": 256}}[variant]
+    batches = _vht_batches(cuda, 200, 60)
+    vht = VHT(VHTConfig(TreeConfig(n_attrs=200, n_min=200, check_tile=2,
+                                   **kw)), device=cuda)
+    want_st, want_m = _eager_run(vht, batches)
+    step = compile_step(vht.step, vht.init(), *batches[0])
+    got_st, got_m = _replays_without_syncs(step, vht.init(), batches)
+    _assert_bits_equal(got_m, want_m)
+    _assert_bits_equal(got_st, want_st)
+    assert int(want_st["n_nodes"]) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["MAMR", "VAMR", "HAMR-2"])
+def test_compiled_amrules_step_bit_identical_to_eager(cuda, variant):
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.data.generators import WaveformGenerator, bin_numeric
+    from repro_torch.ml.amrules import HAMR, VAMR, AMRules, RulesConfig
+    gen = WaveformGenerator(device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    batches = [gen.sample_regression(g, 512) for _ in range(30)]
+    batches = [(bin_numeric(x, 8), y) for x, y in batches]
+    rc = RulesConfig(n_attrs=40, n_min=200)
+    learner = {"MAMR": lambda: AMRules(rc, device=cuda),
+               "VAMR": lambda: VAMR(rc, device=cuda),
+               "HAMR-2": lambda: HAMR(rc, replicas=2, device=cuda)}[variant]()
+    want_st, want_m = _eager_run(learner, batches)
+    step = compile_step(learner.step, learner.init(), *batches[0])
+    got_st, got_m = _replays_without_syncs(step, learner.init(), batches)
+    _assert_bits_equal(got_m, want_m)
+    _assert_bits_equal(got_st, want_st)
+    assert int(want_st["n_created"]) > 0
+
+
+@pytest.mark.cuda
+def test_jit_engine_equals_stream_engine(cuda):
+    """The MA/LS topology at dense-200 on JitEngine (one graph per step
+    after the first) and on the StreamEngine: predictions and every state
+    leaf bit for bit."""
+    from repro_torch.core.engines import JitEngine, StreamEngine
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import VHTConfig, build_vht_topology
+    payloads = [{"x": x, "y": y} for x, y in _vht_batches(cuda, 200, 60)]
+    topo = build_vht_topology(VHTConfig(TreeConfig(n_attrs=200, n_min=200)),
+                              device=cuda)
+    runs = [eng.run_stream(topo, eng.init(topo), payloads)
+            for eng in (JitEngine(), StreamEngine())]
+    (got, got_out), (want, want_out) = runs
+    assert torch.equal(got_out["prediction"]["pred"],
+                       want_out["prediction"]["pred"])
+    for name in want["states"]:
+        _assert_bits_equal(got["states"][name], want["states"][name])
+    assert int(want["states"]["model-aggregator"]["n_nodes"]) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "qwen15_4b"])
+def test_graph_decode_equals_eager_decode(cuda, arch):
+    """serve.generate through one captured decode step against the same
+    step run eagerly, on the SMOKE model: the same tokens, and the same
+    replay logits bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LanguageModel
+    cfg = get_smoke_config(arch)
+    if arch == "qwen15_4b":
+        cfg = dataclasses.replace(cfg, window=16)       # the cache rolls
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = LanguageModel.init(cfg, g, cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 24), generator=g,
+                           device=cuda, dtype=torch.int32)
+    want = serve.generate(model, prompt, 12, compiled=False)
+    got = serve.generate(model, prompt, 12)
+    assert torch.equal(got["tokens"], want["tokens"])
+    assert torch.equal(got["prefill_logits"], want["prefill_logits"])
+
+
+@pytest.mark.cuda
+def test_a_step_that_syncs_does_not_capture(cuda):
+    """A failed capture raises: nothing falls back to running eagerly."""
+    from repro_torch.core.compiled import compile_step
+
+    def fn(state, x):
+        return {"v": state["v"] + float(x.sum())}, x
+
+    with pytest.raises(RuntimeError):
+        compile_step(fn, {"v": torch.zeros((), device=cuda)},
+                     torch.ones(4, device=cuda))

@@ -72,10 +72,16 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# the compiled steps and what runs them: a capture that fails must raise
+COMPILED = [PORT / "core" / "compiled.py", PORT / "core" / "engines.py",
+            PORT / "core" / "evaluation.py", PORT / "launch" / "serve.py"]
+
+
 def test_no_fallback_handlers_in_wrappers_or_smoke():
-    """No wrapper and no phase of chip_smoke.py catches a failure."""
+    """No wrapper, no phase of chip_smoke.py and nothing of the compiled
+    steps catches a failure."""
     paths = [PORT / "kernels" / "_build.py", ROOT / "chip_smoke.py",
-             *sorted((PORT / "kernels").glob("*/ops.py"))]
+             *sorted((PORT / "kernels").glob("*/ops.py")), *COMPILED]
     for path in paths:
         tree = ast.parse(path.read_text())
         handlers = [n.lineno for n in ast.walk(tree)
@@ -124,6 +130,14 @@ def test_library_checks_catch_what_they_name():
                                       "scaled_dot_product_attention"]
 
 
+def test_the_rules_cover_the_compiled_steps():
+    """core/compiled.py and its conditional-node binding are among the
+    files the rules above walk."""
+    assert PORT / "core" / "compiled.py" in _port_files()
+    assert PORT / "csrc" / "graph_cond.cu" in sorted(
+        (PORT / "csrc").glob("*.cu*"))
+
+
 @pytest.mark.parametrize("path", sorted((PORT / "csrc").glob("*.cu*")),
                          ids=lambda p: p.name)
 def test_kernel_sources_include_no_library_kernel(path):
@@ -131,8 +145,10 @@ def test_kernel_sources_include_no_library_kernel(path):
     assert not bad, f"{path.relative_to(ROOT)} includes {bad}"
 
 
-@pytest.mark.parametrize("path", sorted((PORT / "kernels").glob("*/ops.py")),
-                         ids=lambda p: p.parent.name)
+@pytest.mark.parametrize("path", [*sorted((PORT / "kernels").glob("*/ops.py")),
+                                  *COMPILED],
+                         ids=lambda p: (p.parent.name if p.name == "ops.py"
+                                        else p.stem))
 def test_wrappers_call_no_library_attention_or_compile(path):
     bad = _library_calls(path.read_text())
     assert not bad, f"{path.relative_to(ROOT)} calls {bad}"
