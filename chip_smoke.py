@@ -38,7 +38,27 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  versions on the card, and the same state, bit for bit, as
                  a second run with the kernel.  The main path's rule_stats
                  time per step is split between the two uses.
-  7. lm       -- the LM zoo's serving path at full width, one model at a
+  7. ensembles -- OzaBag and OzaBoost (paper section 5) with M = 10
+                 members and ShardingEnsemble, the paper's horizontal
+                 baseline, at B = 512, TreeConfig(n_bins=8, max_nodes=255,
+                 n_min=200).  The main path is OzaBag with ADWIN at
+                 dense-1000 (100 batches); then OzaBoost with ADWIN on
+                 covtype-54 (7 classes, 100 batches), OzaBag with DDM on a
+                 dense-200 concept switch (its drifts must fire), with EDDM
+                 and with Page-Hinkley at dense-200 (50 batches each), and
+                 ShardingEnsemble p = 4 at dense-1000 (fig45) and p = 2 at
+                 dense-200 (tab34), 100 batches.  Each runs eagerly with
+                 the kernels, compiled, and eagerly with the plain
+                 versions; per-batch metrics and the final state (PRNG key
+                 included) must be bit for bit alike across the three.  The
+                 main path also shows tree_route at M = 10 and split_poisson
+                 (the members' Poisson weights, a kernel with no TPU
+                 counterpart, on its own line) against their plain versions
+                 with their device ms and bounds, the drift reset's device
+                 ms, syncs and launches per step and the busy share, eager
+                 against compiled.  Last, a short final batch (200 of 512
+                 rows) compiled against eager for VHT and OzaBag.
+  8. lm       -- the LM zoo's serving path at full width, one model at a
                  time: falcon_mamba_7b (64 Mamba-1 layers, d_model 4096) and
                  qwen15_4b (40 attention layers, 20 heads of 128), random
                  weights from a seed.  The prefill step on 4 prompts of 2048
@@ -49,10 +69,10 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  32 greedy tokens), whose last replay logits must agree with
                  the prefill step on the same prompts.  Prints TTFT, decode
                  ms per step and tokens/s, and the device's busy share.
-  8. result   -- one JSON line of per-kernel numbers, then, as the last line,
+  9. result   -- one JSON line of per-kernel numbers, then, as the last line,
                  {"ok": true, "device": {...}}.
 
-Phases 4 to 7 also run each path compiled (src/repro_torch/core/
+Phases 4 to 8 also run each path compiled (src/repro_torch/core/
 compiled.py: each step one captured CUDA graph, its lax.cond gates
 conditional nodes on the device), after its eager kernel run and against
 it: the main path through PrequentialEvaluation (its default) and
@@ -100,6 +120,15 @@ MAIN_BATCHES = 200
 # statistics extended by the default rule's row: [65, 40, 8, 3] at m = 40
 RULES, RULES_BATCHES, MOMENTS = 64, 80, 3
 VHT_KERNELS = ("tree_route", "vht_stats", "split_gain")
+# the ensembles: M members, 100 batches (50 for the dense-200 detector
+# runs); the concept switch changes its hidden tree at batch SWITCH_AT
+ENS_M, ENS_BATCHES, ENS_DET_BATCHES, SWITCH_AT = 10, 100, 50, 30
+# the H100 SXM's INT32 rate: 64 INT32 lanes an SM (Hopper white paper),
+# 132 SMs, 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# split_poisson's integer operations per round of Knuth's loop: three
+# threefry2x32 hashes of about 80 add, rotate and xor operations each
+THREEFRY_OPS, OPS_PER_ROUND = 80, 3 * 80
 # the LM serving path: prefill of LM_B prompts of LM_S tokens; serve replays
 # SERVE_PROMPT tokens into the caches and decodes SERVE_GEN
 LM_B, LM_S, SERVE_PROMPT, SERVE_GEN, PROFILE_DECODE = 4, 2048, 256, 32, 8
@@ -234,15 +263,17 @@ def route_steps(sa, sb, ch, xbin, max_depth):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the VHT, AMRules and LM paths through the plain PyTorch
-    versions of the six kernels, on the card, for a reference run."""
+    """Route the VHT, ensemble, AMRules and LM paths through the plain
+    PyTorch versions of the six kernels and of split_poisson, on the
+    card, for a reference run."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     from repro_torch.kernels.split_gain.ref import split_gain_ref
+    from repro_torch.kernels.split_poisson.ref import split_poisson_ref
     from repro_torch.kernels.tree_route.ref import tree_route_ref
     from repro_torch.kernels.vht_stats.ref import stats_update_ref
-    from repro_torch.ml import amrules, htree, vht
+    from repro_torch.ml import amrules, ensemble, htree, vht
     from repro_torch.models import layers
 
     def route_plain(sa, sb, ch, xbin, *, max_depth):
@@ -254,8 +285,9 @@ def plain_kernels():
     saved = (htree.tree_route, htree.stats_update, htree.split_gain,
              vht.stats_update, amrules.rule_stats_scatter,
              amrules.segment_sum, layers.selective_scan,
-             layers.flash_attention)
+             layers.flash_attention, ensemble.split_poisson)
     htree.tree_route, htree.split_gain = route_plain, split_gain_ref
+    ensemble.split_poisson = split_poisson_ref
     htree.stats_update = vht.stats_update = stats_update_ref
     amrules.rule_stats_scatter = amrules.segment_sum = rule_stats_scatter_ref
     layers.selective_scan = selective_scan_ref
@@ -266,7 +298,7 @@ def plain_kernels():
         (htree.tree_route, htree.stats_update, htree.split_gain,
          vht.stats_update, amrules.rule_stats_scatter,
          amrules.segment_sum, layers.selective_scan,
-         layers.flash_attention) = saved
+         layers.flash_attention, ensemble.split_poisson) = saved
 
 
 class Recording:
@@ -274,10 +306,11 @@ class Recording:
 
     def __init__(self, learner):
         self.learner = learner
+        self.device = learner.device
         self.metrics = []
 
     def init(self, key=None):
-        return self.learner.init()
+        return self.learner.init(key)
 
     def step(self, state, x, y):
         state, m = self.learner.step(state, x, y)
@@ -668,11 +701,11 @@ def run_pair(make_learner, batches, what):
     return res, count, us
 
 
-def tree_config(m, **kw):
+def tree_config(m, n_classes=2, **kw):
     """benchmarks/vht_benchmarks.py::_tc."""
     from repro_torch.ml.htree import TreeConfig
-    return TreeConfig(n_attrs=m, n_bins=8, n_classes=2, max_nodes=255,
-                      n_min=200, **kw)
+    return TreeConfig(n_attrs=m, n_bins=8, n_classes=n_classes,
+                      max_nodes=255, n_min=200, **kw)
 
 
 def stream(m, n_batches, dev):
@@ -737,7 +770,7 @@ def profile_steps(learner, state, batches, kernel=None, order=()):
                       key)
         if m and m.group(1).startswith(
                 (*VHT_KERNELS, "rule_stats", *LM_ARCHS.values(),
-                 "set_conditions")):
+                 "split_poisson", "set_conditions")):
             ours[m.group(1)] = {"us_per_step": us / n, "per_step": count / n}
     log("  the port's kernels per step: " + ", ".join(
         f"{k} {v['us_per_step']:.2f} us ({v['per_step']:.2f} launches)"
@@ -773,11 +806,11 @@ def no_syncs():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def run_compiled(make_learner, batches, eager, keys, what):
+def run_compiled(make_learner, batches, eager, keys, what, jit_engine=True):
     """The learner compiled, as a user runs it: PrequentialEvaluation (whose
-    default is one captured graph replayed per batch), then
-    JitEngine.run_stream on the bare learner (the first step eager, then
-    one graph).  Against ``eager``, the eager kernel run's result with its
+    default is one captured graph replayed per batch), then, unless
+    ``jit_engine`` is False, JitEngine.run_stream on the bare learner (the
+    first step eager, then one graph).  Against ``eager``, the eager kernel run's result with its
     per-batch metrics: the curve and the final state of the first, the
     per-batch ``keys`` and the final state of the second, bit for bit.
     Returns (us/batch, first batch's s: the capture and its warm-up)."""
@@ -793,6 +826,14 @@ def run_compiled(make_learner, batches, eager, keys, what):
             f"{what} compiled: the curve differs from the eager run's")
     require(same_state(res.extra["state"], eager.extra["state"]),
             f"{what} compiled: the final state differs from the eager run's")
+    us = 1e6 * batches[0][1].shape[0] / res.throughput
+    first_s = total_s - (len(batches) - 1) * us * 1e-6
+    if not jit_engine:
+        log(f"{what} compiled: {us:.1f} us/batch {res.throughput:.0f} "
+            f"inst/s (first batch, with the capture: {first_s:.2f} s); "
+            "curve and final state bit for bit the eager run's, through "
+            "PrequentialEvaluation")
+        return us, first_s
     learner = make_learner()
     eng = JitEngine()
     carry, outs = eng.run_stream(learner, eng.init(learner),
@@ -807,8 +848,6 @@ def run_compiled(make_learner, batches, eager, keys, what):
                        eager.extra["state"]),
             f"{what} on JitEngine: the final state differs from the eager "
             "run's")
-    us = 1e6 * batches[0][1].shape[0] / res.throughput
-    first_s = total_s - (len(batches) - 1) * us * 1e-6
     log(f"{what} compiled: {us:.1f} us/batch {res.throughput:.0f} inst/s "
         f"(first batch, with the capture: {first_s:.2f} s); curve, "
         f"per-batch {', '.join(keys)} and final state bit for bit the eager "
@@ -1097,15 +1136,17 @@ def rules_stream(name, n_batches, dev):
 
 
 def same_state(a, b):
-    """Every leaf equal, float leaves bit for bit."""
+    """Every leaf of two nested dicts equal (None allowed), float and
+    uint32 leaves bit for bit."""
     import torch
-    for k in a:
-        x, y = a[k], b[k]
-        if x.dtype == torch.float32:
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        if x.dtype != y.dtype or not torch.equal(x, y):
-            return False
-    return True
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k])
+                                            for k in a)
+    if a.dtype in (torch.float32, torch.uint32):
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
 
 
 def run_rules(make_learner, batches, what):
@@ -1200,6 +1241,275 @@ def phase_rules(dev, smi):
             out[what]["compiled"].update(graph)
             compare_paths(f"amrules main path {what}", (us, syncs, prof),
                           (out[what]["compiled"]["us_per_batch"], graph), smi)
+    return out
+
+
+def ensemble_stream(kind, n_batches, dev):
+    """The ensembles' streams, drawn on the card at B = 512 and 8 bins:
+    dense-m (benchmarks/vht_benchmarks.py's RandomTreeGenerator(n_cat=m/2,
+    n_num=m/2, depth=8)), covtype-54 (CovtypeLikeGenerator, 7 classes),
+    and the concept switch at dense-200 (hidden trees of depth 2, seed 7,
+    then seed 11 from batch SWITCH_AT on, a concept the trees learn before
+    it switches, so that DDM sees the switch)."""
+    from repro_torch.data.generators import (CovtypeLikeGenerator,
+                                             RandomTreeGenerator)
+    from repro_torch.data.pipeline import StreamPipeline
+    if kind.startswith("dense-"):
+        return stream(int(kind[6:]), n_batches, dev)
+    if kind == "covtype-54":
+        return list(StreamPipeline(CovtypeLikeGenerator(device=dev), batch=B,
+                                   n_batches=n_batches, n_bins=BINS,
+                                   device=dev))
+    out = []
+    for seed, n, pipe_seed in ((7, SWITCH_AT, 0), (11, n_batches - SWITCH_AT,
+                                                   1)):
+        gen = RandomTreeGenerator(n_cat=100, n_num=100, depth=2, seed=seed,
+                                  device=dev)
+        out += list(StreamPipeline(gen, batch=B, n_batches=n, n_bins=BINS,
+                                   seed=pipe_seed, device=dev))
+    return out
+
+
+def run_ensemble(make_learner, batches, keys, what):
+    """An ensemble over batches three ways: eagerly with the kernels, then
+    compiled (PrequentialEvaluation's captured graph), then eagerly with
+    the plain versions; every per-batch metric of ``keys`` and the final
+    state, key included, bit for bit across the three.  Returns (eager
+    result, launches, eager us/batch, compiled us/batch)."""
+    import torch
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.kernels import launches, reset_launches
+
+    rec = Recording(make_learner())
+    torch.cuda.synchronize()
+    reset_launches()
+    res = PrequentialEvaluation(rec, batches, compiled=False).run()
+    count = launches()
+    res.extra["metrics"] = rec.metrics
+    us = 1e6 * B / res.throughput
+    us_c, _ = run_compiled(make_learner, batches, res, keys, what,
+                           jit_engine=False)
+    plain = Recording(make_learner())
+    with plain_kernels():
+        reset_launches()
+        ref = PrequentialEvaluation(plain, batches, compiled=False).run()
+        require(sum(launches().values()) == 0, "plain run launched a kernel")
+    for key in keys:
+        require(torch.equal(stacked(rec.metrics, key).view(torch.int32),
+                            stacked(plain.metrics, key).view(torch.int32)),
+                f"{what}: per-batch {key} differs from the plain run")
+    require(same_state(res.extra["state"], ref.extra["state"]),
+            f"{what}: the final state differs from the plain run's")
+    st = res.extra["state"]
+    trees = st["trees"] if "trees" in st else st
+    nodes = trees["n_nodes"].tolist()
+    require(sum(nodes) > len(nodes), f"{what}: no member grew")
+    require(0.0 <= res.metric <= 1.0 and math.isfinite(res.metric),
+            f"{what}: accuracy {res.metric}")
+    drifts = (float(stacked(rec.metrics, "drifts").sum())
+              if "drifts" in keys else None)
+    log(f"{what}: acc {res.metric:.4f} nodes {nodes} drifts {drifts} "
+        f"{us:.1f} us/batch eager, {us_c:.1f} compiled; launches {count}; "
+        "eager, compiled and plain bit for bit alike")
+    return res, count, us, us_c
+
+
+def ensemble_kernels(st, xb, smi):
+    """On the main path's final state and last batch: tree_route at M = 10
+    on the learned trees, and split_poisson drawing the members' weights
+    (bagging's rates), each against its plain version and timed (device
+    ms, CUDA events over 50 launches) beside its bound; and the drift
+    reset as the JAX package writes it, where(drift, fresh, old) over
+    every leaf, against the port's gated form, both for one member."""
+    import torch
+    from repro_torch.core.pytree import tree_clone, tree_map
+    from repro_torch.kernels.split_poisson.ops import split_poisson
+    from repro_torch.kernels.split_poisson.ref import split_poisson_ref
+    from repro_torch.kernels.tree_route.ops import tree_route
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+    from repro_torch.ml.htree import init_tree
+
+    trees = st["trees"]
+    M = trees["split_attr"].shape[0]
+    tables = (trees["split_attr"], trees["split_bin"], trees["children"])
+    got = tree_route(*tables, xb, max_depth=DEPTH)
+    want = tree_route_ref(*tables, xb, DEPTH)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "tree_route differs at M = 10 on the "
+            "learned trees")
+    steps = route_steps(*tables, xb, DEPTH)
+    moved = tables[0].numel() * 16 + steps * 4 + M * B * 4
+    bound_ms, bound_by = bound(moved, steps)
+    kt = timed(lambda: tree_route(*tables, xb, max_depth=DEPTH))
+    pt = timed(lambda: tree_route_ref(*tables, xb, DEPTH))
+    route = {"M": M, "n_nodes": trees["n_nodes"].tolist(), "ms": kt["ms"],
+             "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+             "ops": steps, "library_ms": None}
+    log(f"tree_route M={M} N={N_NODES} B={B} on the learned trees "
+        f"({route['n_nodes']} nodes; exact): device ms {kt['ms']:.5f}, plain "
+        f"{pt['ms']:.5f}, bound {bound_ms:.3g} ({bound_by}), kernel/bound "
+        f"{kt['ms'] / bound_ms:.0f}, call ms {kt['call_ms']:.5f} on {smi}")
+
+    key = st["key"]
+    lam = torch.ones((M, 1), dtype=torch.float32, device=xb.device)
+    k_got, w_got = split_poisson(key, lam, (M, B))
+    k_want, w_want = split_poisson_ref(key, lam, (M, B))
+    torch.cuda.synchronize()
+    require(same_state({"k": k_got, "w": w_got}, {"k": k_want, "w": w_want}),
+            "split_poisson differs from its plain version")
+    rounds = int((w_got + 1).sum())            # Knuth's rounds these draws take
+    moved = M * 4 + M * B * 4 + 16
+    ops = rounds * OPS_PER_ROUND + 2 * THREEFRY_OPS
+    bound_ms, bound_by = bound(moved, ops, INT32_OPS_PER_S)
+    kt = timed(lambda: split_poisson(key, lam, (M, B)))
+    pt = timed(lambda: split_poisson_ref(key, lam, (M, B)), n=10, reps=3)
+    poisson = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+               "ops": ops, "rounds": rounds, "max_draw": int(w_got.max()),
+               "library_ms": None}
+    log(f"split_poisson [{M},{B}] (bagging, lam 1; {rounds} rounds, largest "
+        f"draw {poisson['max_draw']}; bit for bit its plain version): device "
+        f"ms {kt['ms']:.5f}, plain {pt['ms']:.5f} (its loop reads the host "
+        f"each round), bound {bound_ms:.3g} ({bound_by}, INT32 at "
+        f"{INT32_OPS_PER_S / 1e12:.1f} TOP/s), kernel/bound "
+        f"{kt['ms'] / bound_ms:.0f}, call ms {kt['call_ms']:.5f} on {smi}")
+
+    fresh = init_tree(tree_config(M_ATTRS), xb.device)
+    drift = torch.zeros(M, dtype=torch.bool, device=xb.device)
+    drift[3] = True
+    work = tree_clone(trees)
+
+    def jax_form():
+        return tree_map(lambda old, fr: torch.where(
+            drift.view((-1,) + (1,) * (old.dim() - 1)), fr[None], old),
+            work, fresh)
+
+    def gated_form():
+        work["stats"].masked_fill_(drift.view(-1, 1, 1, 1, 1), 0.0)
+        return {k: torch.where(drift.view((-1,) + (1,) * (v.dim() - 1)),
+                               fresh[k][None], v)
+                for k, v in work.items() if k != "stats"}
+
+    jt, gt = timed(jax_form, n=20, reps=5), timed(gated_form, n=20, reps=5)
+    reset = {"where_every_leaf_ms": jt["ms"], "in_place_ms": gt["ms"],
+             "stats_bytes": work["stats"].numel() * 4}
+    log(f"drift reset of one member of {M} at dense-{M_ATTRS}: where(drift, "
+        f"fresh, old) over every leaf (the JAX form) {jt['ms']:.5f} device "
+        f"ms, the port's in-place form {gt['ms']:.5f} (it runs only on a "
+        f"step with a drift) on {smi}")
+    return {"tree_route_m10": route, "split_poisson": poisson,
+            "drift_reset": reset}
+
+
+def short_last_batch(dev):
+    """A VHT (wok) and an OzaBag stream at dense-200 whose last batch is
+    200 of B = 512 rows: compiled (a second graph captured for the short
+    batch, sharing the state's buffers) against eager, bit for bit."""
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
+    from repro_torch.ml.vht import VHT, VHTConfig
+
+    batches = stream(200, 30, dev)
+    batches[-1] = (batches[-1][0][:200].contiguous(),
+                   batches[-1][1][:200].contiguous())
+    makers = {
+        "VHT wok": lambda: VHT(VHTConfig(tree_config(200, split_delay=4)),
+                               device=dev),
+        "OzaBag": lambda: OzaEnsemble(EnsembleConfig(
+            tree_config(200), n_members=ENS_M), device=dev)}
+    for what, make in makers.items():
+        got = PrequentialEvaluation(make(), batches).run()
+        want = PrequentialEvaluation(make(), batches, compiled=False).run()
+        require(got.curve == want.curve and got.metric == want.metric
+                and same_state(got.extra["state"], want.extra["state"]),
+                f"short last batch {what}: compiled differs from eager")
+        log(f"short last batch ({what}, dense-200, 29 x 512 + 200 rows): "
+            "compiled bit for bit the eager run")
+
+
+def phase_ensembles(dev, smi):
+    """OzaBag and OzaBoost (M = 10) and ShardingEnsemble; the main path is
+    OzaBag with ADWIN at dense-1000."""
+    import torch
+    from repro_torch.core.pytree import tree_clone
+    from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
+    from repro_torch.ml.vht import ShardingEnsemble
+
+    t0 = time.perf_counter()
+    oza_keys = ("correct", "seen", "drifts")
+    shard_keys = ("correct", "seen", "dropped", "n_nodes")
+    out = {}
+    dense = {m: ensemble_stream(f"dense-{m}", ENS_BATCHES, dev)
+             for m in (M_ATTRS, 200)}
+
+    def oza(tc, **kw):
+        ec = EnsembleConfig(tc, n_members=ENS_M, **kw)
+        return lambda: OzaEnsemble(ec, device=dev)
+
+    # the main path
+    what = f"OzaBag adwin dense-{M_ATTRS}"
+    make = oza(tree_config(M_ATTRS))
+    res, count, us, us_c = run_ensemble(make, dense[M_ATTRS], oza_keys, what)
+    steps = len(dense[M_ATTRS])
+    per_step = {k: v / steps for k, v in count.items() if v}
+    for name in ("tree_route", "vht_stats", "split_poisson"):
+        require(count[name] > 0, f"{what}: {name} was not launched")
+    require(count["tree_route"] == steps and count["split_poisson"] == steps,
+            f"{what}: tree_route and split_poisson launch once a step, got "
+            f"{count}")
+    log(f"{what}: launches per step {per_step}")
+    st = res.extra["state"]
+    main = {"us_per_batch": us, "compiled_us_per_batch": us_c,
+            "acc": res.metric, "launches": count,
+            "launches_per_step": per_step,
+            "n_nodes": st["trees"]["n_nodes"].tolist()}
+    main["kernels"] = ensemble_kernels(st, dense[M_ATTRS][-1][0], smi)
+    syncs = count_syncs(make(), tree_clone(st), dense[M_ATTRS][:20])
+    prof = profile_steps(make(), tree_clone(st), dense[M_ATTRS][:30])
+    graph = graph_profile(make, st, dense[M_ATTRS], what)
+    compare_paths(what, (us, syncs, prof), (us_c, graph), smi)
+    main.update(syncs_per_step=syncs, profile=prof, compiled=graph)
+    out[what] = main
+
+    covtype = ensemble_stream("covtype-54", ENS_BATCHES, dev)
+    what = "OzaBoost adwin covtype-54"
+    res, count, us, us_c = run_ensemble(
+        oza(tree_config(54, n_classes=7), boost=True), covtype, oza_keys,
+        what)
+    out[what] = {"us_per_batch": us, "compiled_us_per_batch": us_c,
+                 "acc": res.metric, "launches": count}
+
+    switch = ensemble_stream("switch", ENS_DET_BATCHES, dev)
+    for det, batches in (("ddm", switch),
+                         ("eddm", dense[200][:ENS_DET_BATCHES]),
+                         ("ph", dense[200][:ENS_DET_BATCHES])):
+        what = (f"OzaBag {det} " + ("dense-200 concept switch" if det == "ddm"
+                                     else "dense-200"))
+        res, count, us, us_c = run_ensemble(oza(tree_config(200),
+                                                detector=det),
+                                            batches, oza_keys, what)
+        drifts = float(stacked(res.extra["metrics"], "drifts").sum())
+        if det == "ddm":
+            require(drifts > 0, f"{what}: no drift fired")
+        out[what] = {"us_per_batch": us, "compiled_us_per_batch": us_c,
+                     "acc": res.metric, "drifts": drifts, "launches": count}
+
+    for p, m, cell in ((4, M_ATTRS, "fig45"), (2, 200, "tab34")):
+        what = f"ShardingEnsemble p={p} dense-{m} ({cell})"
+        res, count, us, us_c = run_ensemble(
+            lambda: ShardingEnsemble(tree_config(m), p, device=dev),
+            dense[m], shard_keys, what)
+        require(count["tree_route"] >= ENS_BATCHES,
+                f"{what}: the vote did not route through tree_route")
+        out[what] = {"us_per_batch": us, "compiled_us_per_batch": us_c,
+                     "acc": res.metric, "launches": count}
+
+    short_last_batch(dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    log(f"ensembles phase: {total:.1f} s on {smi}")
+    out["phase_s"] = total
     return out
 
 
@@ -1578,6 +1888,7 @@ def main():
     main_path = phase_main(dev, smi)
     paths = phase_paths(dev)
     rules = phase_rules(dev, smi)
+    ens = phase_ensembles(dev, smi)
     lm = phase_lm(dev, smi)
 
     names = ("tree_route", "vht_stats", "split_gain", "rule_stats",
@@ -1611,6 +1922,7 @@ def main():
         f"{json.dumps(kern['split_gain_full'])}")
     log(f"paths: {json.dumps(paths)}")
     log(f"rules: {json.dumps(rules)}")
+    log(f"ensembles: {json.dumps(ens)}")
     log(f"lm: {json.dumps(lm)}")
     log(f"ptxas: {json.dumps(ptxas)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -6,8 +6,9 @@ read out as numpy (``jax.tree.map(np.asarray, state)``), into the port's
 tensors; ``state_to_numpy`` goes the other way.  ``params_from_numpy`` turns
 an LM's parameter or cache tree into the port's, split per layer.  Dtypes
 are kept: f32 stays float32, i32 stays int32, bool stays bool and bf16
-stays bfloat16.  64-bit arrays are refused, because numpy makes them by
-default and no state or weight holds one.
+stays bfloat16, and a uint32 PRNG key (the ensembles') stays uint32.
+64-bit arrays are refused, because numpy makes them by default and no
+state or weight holds one.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from repro_torch.device import resolve_device
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
-           np.dtype(np.bool_): torch.bool}
+           np.dtype(np.bool_): torch.bool,
+           np.dtype(np.uint32): torch.uint32}
 
 
 def _tensor(a, dev):
@@ -31,8 +33,8 @@ def _tensor(a, dev):
         bits = np.ascontiguousarray(a).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
     if a.dtype not in _DTYPES:
-        raise TypeError(f"arrays are float32, bfloat16, int32 or bool; got "
-                        f"{a.dtype} (convert fixtures explicitly)")
+        raise TypeError(f"arrays are float32, bfloat16, int32, uint32 or "
+                        f"bool; got {a.dtype} (convert fixtures explicitly)")
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 

@@ -6,19 +6,25 @@ and its gates are ``lax.cond``s that run on the device.  Here:
 
   compile_step(fn, state, *payload)
       captures ``fn(state, *payload) -> (state, outputs)`` into a
-      ``torch.cuda.CUDAGraph`` on the card.  The state and the payload live
-      in static buffers.  A call copies the payload (and any state leaf
-      that is not the step's own buffer) in and replays the graph; the
-      graph ends by copying every carried leaf the step replaced back into
-      its buffer, so a replay advances the state in place, as
-      ``donate_argnums`` lets XLA do.  It returns the step's own state and
-      outputs, which the next call overwrites.  On the CPU there is nothing
-      to capture: the step runs eagerly in the same capturable form.
+      ``torch.cuda.CUDAGraph`` on the card, one graph per payload
+      signature (as ``jax.jit`` keeps one program per signature).  The
+      state lives in static buffers that the graphs share, the payload in
+      buffers of each graph's own.  A call copies the payload (and any
+      state leaf that is not the step's own buffer) in and replays the
+      graph; the graph ends by copying every carried leaf the step
+      replaced back into its buffer, so a replay advances the state in
+      place, as ``donate_argnums`` lets XLA do.  It returns the step's own
+      state and outputs, which the next call overwrites.  On the CPU there
+      is nothing to capture: the step runs eagerly in the same capturable
+      form.
   cond(pred, true_fn, false_fn, operand)
       inside a capture, a conditional node of the graph (``csrc/
       graph_cond.cu``): the predicate is read on the device and only the
       branch taken runs.  On the CPU it reads the predicate, the one place
       in a capturable step that may.
+  gate(pred, true_fn, false_fn, operand)
+      ``cond`` in a capturable step; in an eager one, a host read of the
+      predicate picks the branch.
 
 A step is in its capturable form while it runs under ``compile_step``:
 ``capturable()`` is then true, and the gates of ``ml.htree`` and
@@ -89,6 +95,15 @@ def cond(pred, true_fn, false_fn, operand):
         return tree_map(lambda a, b: torch.where(pred, a, b),
                         true_fn(operand), false_fn(operand))
     return capture.cond(pred, true_fn, false_fn, operand)
+
+
+def gate(pred, true_fn, false_fn, operand):
+    """A gate that a step takes in either form: ``cond`` in its capturable
+    form; eagerly, the branch a host read of the 0-dim ``pred`` picks
+    (one sync on the card)."""
+    if capturable():
+        return cond(pred, true_fn, false_fn, operand)
+    return true_fn(operand) if _read(pred) else false_fn(operand)
 
 
 def _check_like(a, b, what):
@@ -192,32 +207,46 @@ class _Eager:
             return self.fn(state, *payload)
 
 
-class _Graph:
-    """A step captured on the card (see ``compile_step``)."""
+def _signature(flat):
+    """What a captured graph is specific to: each leaf's path, shape and
+    dtype."""
+    return tuple((path, tuple(t.shape), t.dtype) for path, t in flat.items())
+
+
+def _copy_in(held, tree, what):
+    """Copy the leaves of ``tree`` into the buffers ``held`` ({path:
+    buffer}), raising, with the leaf's path, on another structure, shape
+    or dtype."""
+    flat = _flat(tree)
+    if flat.keys() != held.keys():
+        raise ValueError(f"{what} has another structure than the "
+                         "captured step's")
+    for path, buf in held.items():
+        t = flat[path]
+        if t is not buf:
+            _check_like(buf, t, f"{what} leaf {path}")
+            buf.copy_(t)
+
+
+class _Step:
+    """A step compiled on the card (see ``compile_step``): the state in
+    static buffers, and one captured graph per payload signature, all of
+    which advance those buffers."""
 
     def __init__(self, fn, state, payload, device):
-        self.state, self.payload = tree_clone(state), tree_clone(payload)
+        self.fn, self.device = fn, device
+        self.state = tree_clone(state)
         self._state = _flat(self.state)
-        self._payload = _flat(self.payload)
-        capture = _Capture(device)
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with _capturing(capture):
-            # the warm-up: builds the kernels, fills what is made at first
-            # use and launches every kernel once, on the static buffers
-            # (which the first call overwrites)
-            with torch.cuda.stream(side):
-                fn(self.state, *self.payload)
-            main.wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):
-                new, self.out = fn(self.state, *self.payload)
-                self._copy_back(new)
-        weakref.finalize(self, _release, self.graph, device,
-                         capture.begun).atexit = False
+        self.graphs: dict[tuple, _Graph] = {}
+        self._graph(payload)
 
-    def _copy_back(self, new):
+    def _graph(self, payload):
+        sig = _signature(_flat(payload))
+        if sig not in self.graphs:
+            self.graphs[sig] = _Graph(self, payload)
+        return self.graphs[sig]
+
+    def copy_back(self, new):
         """The graph's last nodes: every state leaf the step replaced, into
         its buffer.  A new leaf that lives in another buffer is copied out
         first, so that no copy reads a buffer already overwritten."""
@@ -238,35 +267,55 @@ class _Graph:
         for buf, t in todo:
             buf.copy_(t)
 
-    @staticmethod
-    def _copy_in(held, tree, what):
-        flat = _flat(tree)
-        if flat.keys() != held.keys():
-            raise ValueError(f"{what} has another structure than the "
-                             "captured step's")
-        for path, buf in held.items():
-            t = flat[path]
-            if t is not buf:
-                _check_like(buf, t, f"{what} leaf {path}")
-                buf.copy_(t)
-
     def __call__(self, state, *payload):
-        self._copy_in(self._state, state, "state")
-        self._copy_in(self._payload, payload, "payload")
-        self.graph.replay()
-        return self.state, self.out
+        _copy_in(self._state, state, "state")
+        graph = self._graph(payload)
+        _copy_in(graph.inputs, payload, "payload")
+        graph.graph.replay()
+        return self.state, graph.out
+
+
+class _Graph:
+    """One capture of a step, for one payload signature: its payload in
+    static buffers of its own, its state in the step's."""
+
+    def __init__(self, step, payload):
+        device = step.device
+        self.payload = tree_clone(payload)
+        self.inputs = _flat(self.payload)
+        capture = _Capture(device)
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with _capturing(capture):
+            # the warm-up: builds the kernels, fills what is made at first
+            # use and launches every kernel once, on a copy of the state
+            # (the buffers hold the live state once a graph has run)
+            with torch.cuda.stream(side):
+                step.fn(tree_clone(step.state), *self.payload)
+            main.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                new, self.out = step.fn(step.state, *self.payload)
+                step.copy_back(new)
+        weakref.finalize(self, _release, self.graph, device,
+                         capture.begun).atexit = False
 
 
 def compile_step(fn, state, *payload):
     """``fn(state, *payload) -> (state, outputs)`` as one compiled step,
-    for arguments of the structure, shapes and dtypes of the examples
-    given.  On the card (when a leaf of the examples is a CUDA tensor) the
-    step is captured once, after one eager warm-up on a side stream, and
-    each call replays it: no operation is issued from Python and the host
-    reads nothing.  The call returns the step's own state buffers and
-    outputs, which the next call advances and overwrites.  On the CPU the
-    call runs ``fn`` eagerly in its capturable form (``cond`` reads the
-    predicate there)."""
+    for a state of the structure, shapes and dtypes of the example given.
+    On the card (when a leaf of the examples is a CUDA tensor) the step is
+    captured for the example payload, after one eager warm-up on a side
+    stream, and each call with a payload of the same signature (structure,
+    shapes and dtypes) replays it: no operation is issued from Python and
+    the host reads nothing.  A payload of another signature is captured at
+    its first call, as ``jax.jit`` traces again (a short last batch); the
+    graphs share the state's buffers.  A state of another signature
+    raises, naming the leaf.  The call returns the step's own state
+    buffers and outputs, which the next call advances and overwrites.  On
+    the CPU the call runs ``fn`` eagerly in its capturable form (``cond``
+    reads the predicate there)."""
     cuda = [t for t in tree_leaves((state, payload))
             if isinstance(t, torch.Tensor) and t.is_cuda]
     if not cuda:
@@ -274,7 +323,7 @@ def compile_step(fn, state, *payload):
     device = cuda[0].device
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return _Graph(fn, state, payload, device)
+    return _Step(fn, state, payload, device)
 
 
-__all__ = ["capturable", "compile_step", "cond"]
+__all__ = ["capturable", "compile_step", "cond", "gate"]

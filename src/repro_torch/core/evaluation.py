@@ -10,10 +10,12 @@ test-then-train metrics.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.compiled import compile_step
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.core.topology import Task
@@ -51,6 +53,15 @@ class PrequentialResult:
     extra: dict
 
 
+def _init(learner):
+    """``learner.init(PRNGKey(0))``, the key on the learner's device (its
+    ``device``, the card when that is None), as the JAX package gives a
+    keyed learner its key; ``init()`` for an init that takes none."""
+    if not inspect.signature(learner.init).parameters:
+        return learner.init()
+    return learner.init(prng.PRNGKey(0, getattr(learner, "device", None)))
+
+
 def _sync(t):
     if isinstance(t, torch.Tensor) and t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -65,7 +76,9 @@ class PrequentialEvaluation(Task):
     eagerly.  ``compiled=False`` runs ``learner.step`` as it is.  As in the
     JAX package, the first batch is run but left out of the metric, the
     curve and the clock: there it pays for the capture (and for building
-    the kernels), and the per-batch metric reads stay."""
+    the kernels), and the per-batch metric reads stay.  A batch of another
+    shape (a short last batch) is captured anew, as ``jax.jit`` traces
+    again.  The learner's ``init`` is given ``PRNGKey(0)``."""
 
     def __init__(self, learner, stream, *, n_batches: int | None = None,
                  compiled: bool = True):
@@ -75,7 +88,7 @@ class PrequentialEvaluation(Task):
         self.compiled = compiled
 
     def run(self) -> PrequentialResult:
-        state = self.learner.init()
+        state = _init(self.learner)
         step = None if self.compiled else self.learner.step
         curve = []
         correct = abse = seen = 0.0

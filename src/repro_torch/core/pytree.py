@@ -30,3 +30,14 @@ def tree_clone(tree):
     """A copy of ``tree`` whose tensors share no memory with it."""
     return tree_map(
         lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def scan(step, state, x_stream, y_stream):
+    """``lax.scan`` of ``step(state, x, y) -> (state, metrics)`` over the
+    micro-batches of a stream: (final state, metrics stacked to [T])."""
+    metrics = []
+    for x, y in zip(x_stream, y_stream):
+        state, m = step(state, x, y)
+        metrics.append(m)
+    return state, {k: torch.stack([m[k] for m in metrics])
+                   for k in metrics[0]}

@@ -6,6 +6,9 @@ multiply-add, rounded once, and computes ``jnp.cumsum`` as a running sum
 from the first element.  PyTorch rounds every product, and its
 ``torch.cumsum`` adds in float64 on the CPU and in a scan order on the
 card.  Whole-array sums in XLA's order are ``kernels.rule_stats.batch_sum``.
+XLA's float32 square root is the processor's, correctly rounded; PyTorch's
+vectorized one on the CPU can miss by an ulp.  XLA divides by a scalar
+constant as a product with its float32 reciprocal (``div_const``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,23 @@ def fma(a, b, c):
             float(np.float32(v))
 
     return (wide(a) * wide(b) + wide(c)).float()
+
+
+def div_const(x, c):
+    """``x / c`` for a Python number ``c``, as XLA's CPU backend computes a
+    division by a scalar constant (``jnp.mean`` over a fixed axis, too):
+    ``x`` times the float32 reciprocal of ``c``, which differs from the
+    quotient in the last bit where ``1 / c`` is not exact.  A float64
+    ``x`` gives the product unrounded (exact, for float32 factors)."""
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
+def sqrt(x):
+    """The correctly rounded float32 square root, as XLA takes it on the
+    CPU: taken in float64 and rounded once to float32, which is exact for
+    a square root.  (``torch.sqrt`` of float32 on the CPU is off by an ulp
+    in about 0.7 % of arguments.)"""
+    return torch.sqrt(x.double()).float()
 
 
 def cumsum(x):

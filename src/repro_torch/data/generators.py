@@ -1,17 +1,23 @@
 """Synthetic stream generators of the paper's evaluation.
 
-Port of ``bin_numeric``, ``RandomTreeGenerator``, ``WaveformGenerator`` and
-``ElectricityLikeGenerator`` of ``repro/data/generators.py``:
+Port of ``bin_numeric``, ``RandomTreeGenerator``, ``RandomTweetGenerator``,
+``WaveformGenerator``, ``ElectricityLikeGenerator`` and
+``CovtypeLikeGenerator`` of ``repro/data/generators.py``:
 
   dense       -- attributes drawn under a hidden random decision tree;
                  mixed categorical/numerical ("100-100" = 100 cat + 100
                  num); binary balanced classes (section 6.3).
+  sparse      -- tweet-like Zipf bag of words, binary class.
   waveform    -- 21 waveform attributes + 19 noise, the waveform index as
                  a numeric target (section 7.3).
   electricity -- household power-consumption-like autoregressive series,
-                 12 attributes, numeric target (section 7.3).
+                 12 attributes, numeric target (section 7.3), or the
+                 target thresholded at 0.5 as a binary class.
+  covtype     -- covtype-like tabular stream: 10 numeric + 44 binary
+                 attributes, 7 classes from a hidden noisy linear rule.
 
-Constants (the hidden tree, the base waveforms) are the JAX package's own:
+Constants (the hidden tree, the base waveforms, the Zipf word
+distributions, the covtype rule) are the JAX package's own:
 the same ``np.random.RandomState(seed)`` draws, or the same formula.  The
 samples are drawn on the device from a ``torch.Generator``: they follow the
 same distribution as the JAX sampler's, not the same numbers.
@@ -106,6 +112,51 @@ class RandomTreeGenerator:
 
 
 @dataclasses.dataclass
+class RandomTweetGenerator:
+    """Sparse generator: Zipf(z) bag of words, about ``avg_words`` words a
+    tweet, a binary class that permutes the Zipf ranking (a
+    class-conditional word distribution)."""
+    vocab: int = 1000
+    avg_words: float = 15.0
+    zipf_z: float = 1.5
+    seed: int = 7
+    device: object = None
+
+    MAX_WORDS = 30
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        rng = np.random.RandomState(self.seed)
+        ranks = np.arange(1, self.vocab + 1, dtype=np.float64)
+        p = ranks ** (-self.zipf_z)
+        p /= p.sum()
+        perm = rng.permutation(self.vocab)
+        self._p = torch.as_tensor(np.stack([p, p[perm]]).astype(np.float32),
+                                  device=dev)
+
+    @property
+    def n_attrs(self):
+        return self.vocab
+
+    @property
+    def n_classes(self):
+        return 2
+
+    def sample(self, generator: torch.Generator, n: int):
+        """(x [n, vocab] f32 word presence in {0, 1}, y [n] i32)."""
+        dev = generator.device
+        y = (torch.rand((n,), generator=generator, device=dev) < 0.5).to(i32)
+        n_words = torch.clamp((self.avg_words + 4.0 * torch.randn(
+            (n,), generator=generator, device=dev)).to(i32), 1, self.MAX_WORDS)
+        words = torch.multinomial(self._p[y.long()], self.MAX_WORDS,
+                                  replacement=True, generator=generator)
+        kept = (torch.arange(self.MAX_WORDS, device=dev)[None]
+                < n_words[:, None]).to(f32)
+        x = torch.zeros((n, self.vocab), dtype=f32, device=dev)
+        return x.scatter_add_(1, words, kept).clamp_(max=1.0), y
+
+
+@dataclasses.dataclass
 class WaveformGenerator:
     """3 base waveforms, 21 signal + 19 noise attrs; label = waveform id,
     taken as a numeric target by the regression learners (section 7.3)."""
@@ -174,3 +225,47 @@ class ElectricityLikeGenerator:
         target = torch.clamp(0.6 * daily + 0.4 * x[:, -1] + 0.05 * torch.randn(
             (n,), generator=generator, device=dev), 0, 1)
         return x, target
+
+    @property
+    def n_classes(self):
+        return 2
+
+    def sample_classification(self, generator: torch.Generator, n: int):
+        """(x, y [n] i32): the target above 0.5 as the class."""
+        x, target = self.sample(generator, n)
+        return x, (target > 0.5).to(i32)
+
+
+@dataclasses.dataclass
+class CovtypeLikeGenerator:
+    """Covtype-like tabular stream: 54 attributes (10 numeric + 44 binary),
+    7 classes from a hidden noisy linear rule (stands in for covtypeNorm)."""
+    seed: int = 7
+    device: object = None
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        rng = np.random.RandomState(self.seed)
+        self._w = torch.as_tensor((rng.randn(54, 7) * 0.7).astype(np.float32),
+                                  device=dev)
+        self._b = torch.as_tensor((rng.randn(7) * 0.1).astype(np.float32),
+                                  device=dev)
+
+    @property
+    def n_attrs(self):
+        return 54
+
+    @property
+    def n_classes(self):
+        return 7
+
+    def sample(self, generator: torch.Generator, n: int):
+        """(x [n, 54] f32 in [0, 1], y [n] i32 in [0, 7))."""
+        dev = generator.device
+        xnum = torch.rand((n, 10), generator=generator, device=dev)
+        xbin = (torch.rand((n, 44), generator=generator, device=dev)
+                < 0.15).to(f32)
+        x = torch.cat([xnum, xbin], 1)
+        logits = x @ self._w + self._b + 0.5 * torch.randn(
+            (n, 7), generator=generator, device=dev)
+        return x, logits.argmax(-1).to(i32)

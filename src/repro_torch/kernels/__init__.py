@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rule_stats.ops import rule_stats_scatter, segment_sum
 from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.kernels.split_gain.ops import split_gain
+from repro_torch.kernels.split_poisson.ops import split_poisson
 from repro_torch.kernels.tree_route.ops import tree_route
 from repro_torch.kernels.vht_stats.ops import stats_update
 
@@ -23,8 +24,10 @@ KERNELS = {"tree_route": tree_route, "vht_stats": stats_update,
            "split_gain": split_gain, "rule_stats": rule_stats_scatter,
            "selective_scan": selective_scan, "flash_attention": flash_attention}
 # the rule_stats kernel also sums AMRules' float reductions in instance
-# order; those launches are counted apart from the moment statistics'
-COUNTED = {**KERNELS, "segment_sum": segment_sum}
+# order; those launches are counted apart from the moment statistics'.
+# split_poisson (the ensembles' member weights) replaces no TPU kernel.
+COUNTED = {**KERNELS, "segment_sum": segment_sum,
+           "split_poisson": split_poisson}
 
 
 def reset_launches() -> None:

@@ -372,9 +372,7 @@ class AMRules:
 
         if not rc.gate_expansions:
             return open_(stats)
-        if compiled.capturable():
-            return compiled.cond(gate, open_, closed, stats)
-        return open_(stats) if bool(gate) else closed(stats)
+        return compiled.gate(gate, open_, closed, stats)
 
     def _try_expand(self, state):
         """Rules with >= n_min fresh updates attempt an SDR expansion."""

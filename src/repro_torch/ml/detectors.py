@@ -1,23 +1,64 @@
-"""Change detectors (paper section 5): the Page-Hinkley-over-EMA family
-that AMRules attaches to each rule, and ``DetectorBank``, which keeps N
-such detectors as one packed state and advances them in one pass.
+"""Change detectors (paper section 5): ADWIN, DDM, EDDM and Page-Hinkley,
+which the adaptive ensembles attach to each member, and the
+Page-Hinkley-over-EMA family that AMRules attaches to each rule -- each a
+pure function (state, value) -> (state, drift).  ``DetectorBank`` keeps N
+detectors of one family as one packed state (every leaf gains a leading
+``[N]`` axis) and advances them in one pass.
 
-Port of the ``ph_ema`` parts of ``repro/ml/detectors.py``; the other
-families (Page-Hinkley, DDM, EDDM, ADWIN) come with the ensembles.
+Port of ``repro/ml/detectors.py``.  Each family is configured by a frozen
+dataclass; the JAX package's deprecated loose keyword arguments have no
+caller in the port and are not taken.  Where XLA contracts a product into
+a sum on the CPU, the port takes the fused multiply-add
+(``core.xla_numerics.fma``), so the states match the JAX package's bit for
+bit.
+
+The monitored value may come as a float64 tensor: an exact product not
+yet rounded (the ensembles' error rate, a count times XLA's float32
+``1 / B``).  XLA fuses that product into the detector's first sums, so
+each sum it enters is rounded once to float32 (``_plus``); elsewhere it is
+rounded first.
+
+ADWIN here is the exponential-bucket variant with a fixed number of bucket
+rows (capacity-bounded): adjacent-subwindow mean comparison with the
+Hoeffding-style cut threshold.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.core.pytree import tree_map
-from repro_torch.core.xla_numerics import fma
+from repro_torch.core.xla_numerics import cumsum, fma, sqrt
 from repro_torch.device import resolve_device
 
 f32 = torch.float32
-FAMILIES = ("ph_ema",)
+FAMILIES = ("ph", "ddm", "eddm", "adwin", "ph_ema")
+
+
+@dataclasses.dataclass(frozen=True)
+class PageHinkleyConfig:
+    alpha: float = 0.005      # drift magnitude allowance per step
+    lam: float = 50.0         # cumulative-deviation threshold
+
+
+@dataclasses.dataclass(frozen=True)
+class DdmConfig:
+    warn_k: float = 2.0       # warning-zone multiplier (reported, not acted on)
+    drift_k: float = 3.0      # drift-zone multiplier
+
+
+@dataclasses.dataclass(frozen=True)
+class EddmConfig:
+    beta: float = 0.9         # distance-ratio drift threshold
+
+
+@dataclasses.dataclass(frozen=True)
+class AdwinConfig:
+    n_buckets: int = 32       # exponential histogram rows
+    delta: float = 0.002
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +71,170 @@ class PhEmaConfig:
     decay: float = 0.99       # EMA decay of the error baseline
 
 
+CONFIGS = {"ph": PageHinkleyConfig, "ddm": DdmConfig, "eddm": EddmConfig,
+           "adwin": AdwinConfig, "ph_ema": PhEmaConfig}
+
+
+def _scalars(device, **values):
+    dev = resolve_device(device)
+    return {k: torch.full((), v, dtype=f32, device=dev)
+            for k, v in values.items()}
+
+
+def _plus(x, c):
+    """``x + c`` in float32; a float64 ``x`` (an unrounded product) is
+    added first and the sum rounded once, as XLA's fused multiply-add."""
+    return (x + c).float() if x.dtype == torch.float64 else x + c
+
+
+def _reset_where(drift, fresh, new):
+    """``where(drift, fresh, new)`` leaf by leaf: the post-drift reset."""
+    return tree_map(lambda a, b: torch.where(drift, a, b), fresh, new)
+
+
+# ------------------------------- Page-Hinkley -------------------------------
+
+def ph_init(device=None):
+    return _scalars(device, m=0.0, min=0.0, mean=0.0, n=0.0)
+
+
+def ph_update(state, x, pc: PageHinkleyConfig | None = None):
+    pc = pc if pc is not None else PageHinkleyConfig()
+    n = state["n"] + 1
+    mean = state["mean"] + _plus(x, -state["mean"]) / n
+    m = _plus(x, state["m"]) - mean - pc.alpha
+    mn = torch.minimum(state["min"], m)
+    drift = m - mn > pc.lam
+    return {"m": m, "min": mn, "mean": mean, "n": n}, drift
+
+
+# ------------------------------------ DDM -----------------------------------
+
+def ddm_init(device=None):
+    return _scalars(device, n=0.0, p=1.0, s=0.0, pmin=1e9, smin=1e9)
+
+
+def ddm_update(state, error, dc: DdmConfig | None = None):
+    """error: the misclassification rate (0/1 for one instance)."""
+    dc = dc if dc is not None else DdmConfig()
+    n = state["n"] + 1
+    p = state["p"] + _plus(error, -state["p"]) / n
+    s = sqrt(p * (1 - p) / torch.clamp(n, min=1.0))
+    # only track minima once the estimate has stabilized, otherwise an
+    # early lucky streak (p=0, s=0) makes every later point look like drift
+    better = (n >= 30) & (p + s < state["pmin"] + state["smin"])
+    pmin = torch.where(better, p, state["pmin"])
+    smin = torch.where(better, s, state["smin"])
+    drift = (n > 30) & (p + s > fma(dc.drift_k, smin, pmin))
+    new = {"n": n, "p": p, "s": s, "pmin": pmin, "smin": smin}
+    return _reset_where(drift, ddm_init(n.device), new), drift
+
+
+# ----------------------------------- EDDM -----------------------------------
+
+def eddm_init(device=None):
+    return _scalars(device, n=0.0, last_err=0.0, mean_d=0.0, var_d=0.0,
+                    m2smax=0.0, n_err=0.0)
+
+
+def eddm_update(state, error, ec: EddmConfig | None = None):
+    """Distance-between-errors detector."""
+    ec = ec if ec is not None else EddmConfig()
+    n = state["n"] + 1
+    is_err = error.float() > 0.5
+    dist = n - state["last_err"]
+    n_err = state["n_err"] + is_err
+    delta = dist - state["mean_d"]
+    mean_d = torch.where(
+        is_err, state["mean_d"] + delta / torch.clamp(n_err, min=1),
+        state["mean_d"])
+    var_d = torch.where(is_err, fma(delta, dist - mean_d, state["var_d"]),
+                        state["var_d"])
+    std = sqrt(torch.clamp(var_d / torch.clamp(n_err - 1, min=1),
+                                 min=0))
+    m2s = mean_d + 2 * std
+    m2smax = torch.maximum(state["m2smax"],
+                           torch.where(is_err, m2s, state["m2smax"]))
+    ratio = m2s / torch.clamp(m2smax, min=1e-9)
+    drift = is_err & (n_err > 30) & (ratio < ec.beta)
+    new = {"n": n, "last_err": torch.where(is_err, n, state["last_err"]),
+           "mean_d": mean_d, "var_d": var_d, "m2smax": m2smax, "n_err": n_err}
+    return _reset_where(drift, eddm_init(n.device), new), drift
+
+
+# ----------------------------------- ADWIN ----------------------------------
+
+def adwin_init(ac: AdwinConfig | None = None, device=None):
+    ac = ac if ac is not None else AdwinConfig()
+    dev = resolve_device(device)
+    return {"sum": torch.zeros(ac.n_buckets, dtype=f32, device=dev),
+            "cnt": torch.zeros(ac.n_buckets, dtype=f32, device=dev),
+            "n": torch.zeros((), dtype=f32, device=dev)}
+
+
+def _adwin(s, c, n, x, ac: AdwinConfig):
+    """The ADWIN update on histograms [..., n_buckets] (bucket 0 newest)
+    and values x [...]: the cascade of overflowing buckets one level
+    down, the prefix/suffix cut scan, and, on drift, the eviction of the
+    oldest half of the window."""
+    nb = ac.n_buckets
+    s = torch.cat([_plus(x[..., None], s[..., :1]), s[..., 1:]], -1)
+    c = torch.cat([c[..., :1] + 1.0, c[..., 1:]], -1)
+    cap = 2.0 ** torch.arange(nb, dtype=f32, device=s.device)
+    overflow = c >= 2 * cap
+    carry_c = torch.where(overflow, cap, 0.0)
+    carry_s = torch.where(
+        overflow, s * torch.where(c > 0, cap / torch.clamp(c, min=1e-9), 0.0),
+        0.0)
+
+    def shifted(v):                     # jnp.roll(v, 1).at[0].set(0)
+        return torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], -1)
+
+    c = c - carry_c + shifted(carry_c)
+    s = s - carry_s + shifted(carry_s)
+    n = n + 1
+
+    # every prefix/suffix cut, its mean difference against eps_cut; the
+    # running sums in XLA's order
+    csum = cumsum(s)
+    ccnt = cumsum(c)
+    tot_s, tot_c = csum[..., -1:], ccnt[..., -1:]
+    n0 = torch.clamp(ccnt, min=1e-9)            # newest-side window
+    n1 = torch.clamp(tot_c - ccnt, min=1e-9)
+    mu0 = csum / n0
+    mu1 = (tot_s - csum) / n1
+    m_inv = 1 / n0 + 1 / n1
+    dd = math.log(2.0 / ac.delta)
+    mean = tot_s / torch.clamp(tot_c, min=1e-9)
+    var = torch.clamp(mean * (1 - mean), 0.0, 0.25)
+    eps = fma(2.0 / 3.0 * m_inv, dd, sqrt(2 * m_inv * var * dd))
+    valid = (ccnt > 5) & ((tot_c - ccnt) > 5)
+    drift = torch.any(valid & (torch.abs(mu0 - mu1) > eps), dim=-1)
+    half = torch.arange(nb, device=s.device) < nb // 2
+    evict = drift[..., None] & ~half
+    s = torch.where(evict, 0.0, s)
+    c = torch.where(evict, 0.0, c)
+    return {"sum": s, "cnt": c, "n": n}, drift
+
+
+def adwin_update(state, x, ac: AdwinConfig | None = None):
+    """Exponential-histogram ADWIN of one detector (bucket 0 newest): when
+    a bucket's count reaches twice its capacity it cascades into the next
+    (a soft cascade each step, capacity-bounded)."""
+    ac = ac if ac is not None else AdwinConfig()
+    return _adwin(state["sum"], state["cnt"], state["n"], x, ac)
+
+
+def _adwin_update_batch(state, x, ac: AdwinConfig):
+    """All rows of a packed [N, n_buckets] ADWIN state in one tensor pass,
+    the per-row arithmetic of ``adwin_update``."""
+    return _adwin(state["sum"], state["cnt"], state["n"], x, ac)
+
+
+# ---------------------------- PH-over-EMA (AMRules) --------------------------
+
 def phema_init(device=None):
-    z = torch.zeros((), dtype=f32, device=resolve_device(device))
-    return {"m": z, "min": z.clone(), "err": z.clone()}
+    return _scalars(device, m=0.0, min=0.0, err=0.0)
 
 
 def phema_update(state, x, pe: PhEmaConfig | None = None, has=None):
@@ -53,31 +255,61 @@ def phema_update(state, x, pe: PhEmaConfig | None = None, has=None):
     return {"m": mt, "min": mn, "err": err}, drift
 
 
+# ------------------------------- DetectorBank --------------------------------
+
 class DetectorBank:
-    """N change detectors of one family as a packed struct-of-arrays state:
-    every leaf of the scalar state gains a leading ``[N]`` axis, and
-    ``update`` advances all N in one elementwise pass."""
+    """N change detectors of one family as a packed struct-of-arrays state.
+
+    Every leaf of the scalar state gains a leading ``[N]`` axis; ``update``
+    advances all N in one batched pass (the PH, DDM, EDDM and PH-over-EMA
+    recurrences are elementwise, so the scalar updates run unchanged on
+    the packed state; ADWIN takes its batched histogram pass).  ``reset``
+    re-initializes a masked subset of rows."""
 
     def __init__(self, family: str, n: int, config=None, device=None):
         if family not in FAMILIES:
             raise ValueError(f"unknown detector family {family!r} "
-                             f"(the port has: {', '.join(FAMILIES)})")
+                             f"(available: {', '.join(FAMILIES)})")
         self.family = family
         self.n = n
-        self.config = config if config is not None else PhEmaConfig()
+        self.config = config if config is not None else CONFIGS[family]()
         self.device = device
 
+    def _init_one(self, device):
+        if self.family == "ph":
+            return ph_init(device)
+        if self.family == "ddm":
+            return ddm_init(device)
+        if self.family == "eddm":
+            return eddm_init(device)
+        if self.family == "adwin":
+            return adwin_init(self.config, device)
+        return phema_init(device)
+
     def init(self):
-        """Packed [N] state: the scalar init broadcast across rows."""
-        return tree_map(lambda x: x.expand(self.n).clone(),
-                        phema_init(self.device))
+        """Packed [N, ...] state: the scalar init broadcast across rows."""
+        one = self._init_one(self.device)
+        return tree_map(lambda x: x.expand(self.n, *x.shape).clone(), one)
 
     def update(self, state, x, has=None):
-        """x: [N] monitored values; ``has`` [N] bool masks detectors that
-        got no sample this step.  Returns (state, drift [N] bool)."""
+        """x: [N] monitored values, one per detector.  ``has`` ([N] bool)
+        is honoured by the ph_ema family only (rules with no covered
+        instance this step).  Returns (state, drift [N] bool)."""
+        if self.family == "ph":
+            return ph_update(state, x, self.config)
+        if self.family == "ddm":
+            return ddm_update(state, x, self.config)
+        if self.family == "eddm":
+            return eddm_update(state, x, self.config)
+        if self.family == "adwin":
+            return _adwin_update_batch(state, x, self.config)
         return phema_update(state, x, self.config, has=has)
 
     def reset(self, state, mask):
         """Re-initialize the detectors where ``mask`` ([N] bool) holds."""
-        fresh = phema_init(mask.device)
-        return tree_map(lambda z, a: torch.where(mask, z, a), fresh, state)
+        fresh = self._init_one(mask.device)
+
+        def pick(z, a):
+            return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)),
+                               z, a)
+        return tree_map(pick, fresh, state)

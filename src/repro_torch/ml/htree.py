@@ -157,6 +157,28 @@ def update_stats(state, leaf, xbin, y, w, tc: TreeConfig):
     return state
 
 
+def update_stats_members(trees, leaf, xbin, y, w, tc: TreeConfig):
+    """``update_stats`` of M stacked member trees on one shared batch:
+    leaf, w [M, B] (member m's leaves and weights), xbin [B, m], y [B].
+
+    Each member's ``stats`` is updated IN PLACE by one ``vht_stats`` launch
+    (M a step); the counters of all members take one ``index_add`` each,
+    over the flattened [M * N] pool."""
+    M, N, C = leaf.shape[0], tc.max_nodes, tc.n_classes
+    for k in range(M):
+        stats_update(trees["stats"][k], leaf[k], xbin, y, w[k])
+    rows = torch.arange(M, device=leaf.device)[:, None] * N
+    flat = (leaf.long() + rows).reshape(-1)
+    wf = w.reshape(-1)
+    clsoh = (F.one_hot(y.long(), C).to(f32)[None] * w[:, :, None]).reshape(-1, C)
+    trees = dict(trees)
+    trees["class_counts"] = trees["class_counts"].reshape(M * N, C).index_add(
+        0, flat, clsoh).reshape(M, N, C)
+    for key in ("since_attempt", "n_total"):
+        trees[key] = trees[key].reshape(-1).index_add(0, flat, wf).reshape(M, N)
+    return trees
+
+
 # --------------------------------------------------------------------------
 # split criterion (LS: Alg. 3 + MA: Alg. 4)
 # --------------------------------------------------------------------------
@@ -311,24 +333,18 @@ def apply_splits(state, split_mask, best_attr, best_bin, tc: TreeConfig,
     if not tc.gate_splits:
         return _apply_splits_impl(state, split_mask, best_attr, best_bin, tc,
                                   child_counts)
-    if compiled.capturable():
-        def split(_):
-            st, do = _apply_splits_impl(state, split_mask, best_attr,
-                                        best_bin, tc, child_counts)
-            return {k: st[k] for k in _SPLIT_KEYS}, do
+    def split(_):
+        st, do = _apply_splits_impl(state, split_mask, best_attr, best_bin,
+                                    tc, child_counts)
+        return {k: st[k] for k in _SPLIT_KEYS}, do
 
-        def keep(kept):
-            return kept, torch.zeros(tc.max_nodes, dtype=torch.bool,
-                                     device=split_mask.device)
+    def keep(kept):
+        return kept, torch.zeros(tc.max_nodes, dtype=torch.bool,
+                                 device=split_mask.device)
 
-        new, do = compiled.cond(split_mask.any(), split, keep,
-                                {k: state[k] for k in _SPLIT_KEYS})
-        return {**state, **new}, do
-    if not bool(split_mask.any()):
-        return state, torch.zeros(tc.max_nodes, dtype=torch.bool,
-                                  device=split_mask.device)
-    return _apply_splits_impl(state, split_mask, best_attr, best_bin, tc,
-                              child_counts)
+    new, do = compiled.gate(split_mask.any(), split, keep,
+                            {k: state[k] for k in _SPLIT_KEYS})
+    return {**state, **new}, do
 
 
 # the leaves _apply_splits_impl replaces (it clears the split leaves'
@@ -393,4 +409,4 @@ __all__ = ["NEG", "TreeConfig", "apply_splits", "child_counts_from_stats",
            "decide_splits", "due_topk", "gated_check", "gather_decide_tile",
            "hoeffding_bound", "init_tree", "predict", "route",
            "route_members", "scatter_rows", "split_gains", "top_k",
-           "update_stats"]
+           "update_stats", "update_stats_members"]

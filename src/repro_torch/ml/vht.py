@@ -12,7 +12,8 @@ Port of ``repro/ml/vht.py``.  Variants (the paper's experimental arms):
 
 The VHT step is one eager function; the same logic is also exposed as a
 Topology (ModelAggregatorProcessor + LocalStatisticProcessor wired with key
-grouping) so it runs on the LocalEngine and the StreamEngine.
+grouping) so it runs on the LocalEngine and the StreamEngine.  The paper's
+horizontal baseline, ``ShardingEnsemble``, is here too.
 
 ``step`` updates ``state["stats"]`` in place (see ``htree.update_stats``);
 ``run`` clones the state first, so the caller's state is left as it was.
@@ -24,11 +25,12 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.pytree import tree_clone
+from repro_torch.core.pytree import scan, tree_clone
 from repro_torch.core.topology import Processor, Topology, TopologyBuilder
 from repro_torch.device import resolve_device
 from repro_torch.kernels.vht_stats.ops import stats_update
 from repro_torch.ml import htree
+from repro_torch.ml.ensemble import restack, vote
 from repro_torch.ml.htree import TreeConfig
 
 f32 = torch.float32
@@ -174,13 +176,54 @@ class VHT:
         """Step over the micro-batches [T, B, m] / [T, B] of a stream;
         returns (final state, metrics stacked to [T]).  The caller's
         ``state`` is not modified."""
-        state = tree_clone(state)
-        metrics = []
-        for xb, yb in zip(xbin_stream, y_stream):
-            state, m = self.step(state, xb, yb)
-            metrics.append(m)
-        return state, {k: torch.stack([m[k] for m in metrics])
-                       for k in metrics[0]}
+        return scan(self.step, tree_clone(state), xbin_stream, y_stream)
+
+
+# ---------------------------------------------------------------------------
+# horizontal parallelism baseline (paper: 'sharding')
+# ---------------------------------------------------------------------------
+
+class ShardingEnsemble:
+    """p independent Hoeffding trees on stream shards; majority vote.
+
+    Memory grows p-fold (each tree tracks ALL attributes) -- the blow-up the
+    paper demonstrates at 20k dense attributes.  The vote routes the whole
+    batch through the p trees in one ``tree_route`` launch; member i then
+    trains on the i-th of p equal shards of the batch (the remainder of
+    ``B // p`` is not trained on) through the VHT step, with
+    ``split_delay=0, buffer_size=0``.  The members' statistics are updated
+    in place."""
+
+    def __init__(self, tc: TreeConfig, p: int, device=None):
+        self.tc = dataclasses.replace(tc, split_delay=0, buffer_size=0)
+        self.p = p
+        self.device = device
+        self._vht = VHT(VHTConfig(self.tc), device)
+
+    def init(self, key=None):
+        one = htree.init_tree(self.tc, self.device)
+        return {k: torch.stack([v] * self.p) for k, v in one.items()}
+
+    def step(self, states, xbin, y):
+        B, p = y.shape[0], self.p
+        leaf = htree.route_members(states, xbin, self.tc)       # [p, B]
+        _, pred = vote(states, leaf, self.tc.n_classes)
+        correct = (pred == y).to(f32).sum()
+        # shuffle-group training: shard the batch across the ensemble
+        n = (B // p) * p
+        xs = xbin[:n].reshape(p, B // p, -1)
+        ys = y[:n].reshape(p, B // p)
+        members = [self._vht.step({k: v[i] for k, v in states.items()},
+                                  xs[i], ys[i])[0] for i in range(p)]
+        states = restack(states, members)
+        return states, {"correct": correct,
+                        "seen": torch.full((), B, dtype=f32, device=y.device),
+                        "dropped": torch.zeros((), dtype=f32, device=y.device),
+                        "n_nodes": states["n_nodes"].to(f32).sum()}
+
+    def run(self, states, xbin_stream, y_stream):
+        """As ``VHT.run``: the caller's ``states`` is not modified."""
+        return scan(self.step, tree_clone(states), xbin_stream, y_stream)
 
 
 # ---------------------------------------------------------------------------

@@ -283,7 +283,7 @@ def test_config_refuses_what_the_port_does_not_have():
     with pytest.raises(ValueError, match="detector"):
         RulesConfig(n_attrs=4, detector_impl="adwin")
     with pytest.raises(ValueError, match="family"):
-        DetectorBank("adwin", 4)
+        DetectorBank("cusum", 4)
     rc = dataclasses.replace(RulesConfig(n_attrs=4), delay=0)
     assert VAMR(rc, device=CPU).rc.delay == 1
     assert HAMR(rc, device=CPU).rc.delay == 1

@@ -44,11 +44,14 @@ from repro_torch.core.compiled import compile_step
 from repro_torch.core.engines import JitEngine, StreamEngine
 from repro_torch.core.evaluation import PrequentialEvaluation
 from repro_torch.kernels.rule_stats import ops as rule_stats_ops
+from repro_torch.kernels.split_poisson import ops as split_poisson_ops
 from repro_torch.launch import serve
 from repro_torch.ml import amrules, htree
 from repro_torch.ml.amrules import HAMR, VAMR, AMRules, RulesConfig
+from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
 from repro_torch.ml.htree import TreeConfig
-from repro_torch.ml.vht import VHT, VHTConfig, build_vht_topology
+from repro_torch.ml.vht import (VHT, ShardingEnsemble, VHTConfig,
+                                build_vht_topology)
 from repro_torch.models.lm import LanguageModel
 
 CPU = "cpu"
@@ -248,7 +251,8 @@ def test_prequential_evaluation_compiled_equals_eager():
 SYNCING = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist",
            "nonzero", "numpy")
 # the kernels' plain versions, which run where the card launches a kernel
-PLAIN = [(rule_stats_ops, "rule_stats_scatter_ref")]
+PLAIN = [(rule_stats_ops, "rule_stats_scatter_ref"),
+         (split_poisson_ops, "split_poisson_ref")]
 
 
 def _decode_case():
@@ -273,6 +277,20 @@ def _learner_case(kind):
     return case
 
 
+def _ensemble_case(kind):
+    def case():
+        x, y = _stream("vht")
+        tc = TreeConfig(**TREE)
+        if kind == "sharding":
+            learner = ShardingEnsemble(tc, 2, device=CPU)
+        else:
+            learner = OzaEnsemble(EnsembleConfig(
+                tc, n_members=3, boost=kind == "ozaboost", detector="ddm"),
+                device=CPU)
+        return learner.step, learner.init(), (x, y)
+    return case
+
+
 def _topology_case():
     x, y = _stream("vht")
     topo = build_vht_topology(VHTConfig(TreeConfig(**TREE)), device=CPU)
@@ -287,7 +305,10 @@ def _topology_case():
 
 CASES = {"vht-wk64": _learner_case("wk64"), "vht-local": _learner_case("local"),
          "VAMR": _learner_case("VAMR"), "HAMR-2": _learner_case("HAMR-2"),
-         "topology": _topology_case, "decode": _decode_case}
+         "topology": _topology_case, "decode": _decode_case,
+         "ozabag": _ensemble_case("ozabag"),
+         "ozaboost": _ensemble_case("ozaboost"),
+         "sharding": _ensemble_case("sharding")}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -3,9 +3,11 @@ the card, at the main paths' shapes (VHT: B = 512, m = 1000, N = 255,
 bins = 8, C = 2; AMRules: [65, 40, 8, 3], B = 512; the LM prefill:
 selective_scan at B = 4, S = 2048, dI = 8192, N = 16, flash_attention at
 B = 4, S = 2048, 20 heads of 128) and at small shapes, and the LM SMOKE
-models on the card against their plain runs; and the compiled steps
+models on the card against their plain runs; the compiled steps
 (core/compiled.py) as CUDA graphs against the eager steps, bit for bit,
-with no sync in any replay.  Every test here is marked
+with no sync in any replay; and the ensembles' split_poisson kernel
+against its plain version, the OzaBag, OzaBoost and ShardingEnsemble steps
+compiled against eager, and a short last batch compiled against eager.  Every test here is marked
 ``cuda`` and skips without a CUDA device; the file imports nothing of JAX,
 so it runs where JAX is not installed:
 
@@ -332,7 +334,8 @@ def test_split_gain_kernel_unaligned_rows(cuda):
 
 
 def _bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return (t.view(torch.int32) if t.dtype in (torch.float32, torch.uint32)
+            else t)
 
 
 @pytest.mark.cuda
@@ -660,10 +663,17 @@ def _eager_run(learner, batches):
     return state, {k: torch.stack([m[k] for m in out]) for k in out[0]}
 
 
-def _assert_bits_equal(got, want):
-    assert got.keys() == want.keys()
-    for k in want:
-        assert torch.equal(_bits(got[k]), _bits(want[k])), k
+def _assert_bits_equal(got, want, path=""):
+    """Nested dicts of tensors (None allowed): every leaf bit for bit (a
+    uint32 PRNG key through its int32 bits)."""
+    if want is None or isinstance(want, dict):
+        assert (got is None) == (want is None), path
+        if want is not None:
+            assert got.keys() == want.keys(), path
+            for k in want:
+                _assert_bits_equal(got[k], want[k], f"{path}/{k}")
+        return
+    assert torch.equal(_bits(got), _bits(want)), path
 
 
 @pytest.mark.cuda
@@ -809,3 +819,91 @@ def test_a_step_that_syncs_does_not_capture(cuda):
     with pytest.raises(RuntimeError):
         compile_step(fn, {"v": torch.zeros((), device=cuda)},
                      torch.ones(4, device=cuda))
+
+
+# ------------------------------------------------- ensembles (slice 8)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", ["bagging", "boosting"])
+def test_split_poisson_kernel_matches_plain(cuda, lam):
+    """JAX's split and Knuth Poisson draws at the ensembles' [10, 512]:
+    the kernel's key and weights equal the plain version's, bit for bit
+    (its logf is torch.log's on the card)."""
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.kernels.split_poisson.ops import split_poisson
+    from repro_torch.kernels.split_poisson.ref import split_poisson_ref
+    M, B = 10, 512
+    if lam == "bagging":
+        rates = torch.ones((M, 1), device=cuda)
+    else:
+        g = torch.Generator(device=cuda)
+        g.manual_seed(3)
+        rates = 1.0 + 2.0 * torch.rand((M, B), generator=g, device=cuda)
+    for seed in range(4):
+        key = PRNGKey(seed, cuda)
+        got_key, got_w = split_poisson(key, rates, (M, B))
+        want_key, want_w = split_poisson_ref(key, rates, (M, B))
+        torch.cuda.synchronize()
+        _assert_bits_equal({"key": got_key, "w": got_w},
+                         {"key": want_key, "w": want_w})
+        assert float(got_w.max()) >= 3
+    assert launches()["split_poisson"] == 4
+
+
+def _ensemble(cuda, kind, m=200):
+    from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import ShardingEnsemble
+    tc = TreeConfig(n_attrs=m, n_min=200)
+    if kind == "sharding":
+        return ShardingEnsemble(tc, 4, device=cuda)
+    return OzaEnsemble(EnsembleConfig(tc, n_members=10,
+                                      boost=kind == "ozaboost"), device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ozabag", "ozaboost", "sharding"])
+def test_compiled_ensemble_step_bit_identical_to_eager(cuda, kind):
+    """An OzaBag, OzaBoost (M = 10, ADWIN) and ShardingEnsemble (p = 4)
+    step captured as a graph against the eager step with the kernels, on
+    dense-200: every per-batch metric and state leaf, the key included,
+    bit for bit; no sync in any replay; split_poisson launched once a
+    step eagerly."""
+    from repro_torch.core.compiled import compile_step
+    batches = _vht_batches(cuda, 200, 40)
+    learner = _ensemble(cuda, kind)
+    reset_launches()
+    want_st, want_m = _eager_run(learner, batches)
+    if kind != "sharding":
+        assert launches()["split_poisson"] == len(batches)
+        assert launches()["tree_route"] == len(batches)
+    step = compile_step(learner.step, learner.init(), *batches[0])
+    got_st, got_m = _replays_without_syncs(step, learner.init(), batches)
+    _assert_bits_equal(got_m, want_m)
+    _assert_bits_equal(got_st, want_st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["vht", "ozabag"])
+def test_short_last_batch_compiled_equals_eager(cuda, kind):
+    """A stream whose last batch is 200 of B = 512 rows:
+    PrequentialEvaluation compiled (a second graph captured for the short
+    batch, sharing the state's buffers) against the eager run, bit for
+    bit: the curve and the final state."""
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import VHT, VHTConfig
+    batches = _vht_batches(cuda, 200, 30)
+    batches[-1] = (batches[-1][0][:200].contiguous(),
+                   batches[-1][1][:200].contiguous())
+
+    def make():
+        if kind == "vht":
+            return VHT(VHTConfig(TreeConfig(n_attrs=200, n_min=200,
+                                            split_delay=4)), device=cuda)
+        return _ensemble(cuda, "ozabag")
+
+    got = PrequentialEvaluation(make(), batches).run()
+    want = PrequentialEvaluation(make(), batches, compiled=False).run()
+    assert got.curve == want.curve and got.metric == want.metric
+    _assert_bits_equal(got.extra["state"], want.extra["state"])

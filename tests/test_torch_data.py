@@ -19,12 +19,16 @@ torch = pytest.importorskip("torch")
 # small tensors gain nothing from more
 torch.set_num_threads(1)
 
+from repro.data.generators import CovtypeLikeGenerator as JaxCovtype
 from repro.data.generators import ElectricityLikeGenerator as JaxElectricity
+from repro.data.generators import RandomTweetGenerator as JaxTweet
 from repro.data.generators import RandomTreeGenerator as JaxGenerator
 from repro.data.generators import WaveformGenerator as JaxWaveform
 from repro.data.generators import bin_numeric as jax_bin_numeric
-from repro_torch.data.generators import (ElectricityLikeGenerator,
+from repro_torch.data.generators import (CovtypeLikeGenerator,
+                                         ElectricityLikeGenerator,
                                          RandomTreeGenerator,
+                                         RandomTweetGenerator,
                                          WaveformGenerator, bin_numeric)
 from repro_torch.data.pipeline import StreamPipeline
 
@@ -115,3 +119,58 @@ def test_regression_streams_match_jax_in_distribution(name):
         assert set(np.unique(y.numpy())) == {0.0, 1.0, 2.0}
         assert gen.sample(torch.Generator().manual_seed(0), 8)[1].dtype \
             == torch.int32
+
+
+def test_classification_constants_match_jax():
+    """The covtype-like rule and the tweet generator's two Zipf word
+    distributions are the JAX package's own numpy draws."""
+    jc, tc = JaxCovtype(), CovtypeLikeGenerator(device=CPU)
+    for key in ("_w", "_b"):
+        np.testing.assert_array_equal(getattr(tc, key).numpy(),
+                                      np.asarray(getattr(jc, key)))
+    jt, tt = JaxTweet(), RandomTweetGenerator(device=CPU)
+    np.testing.assert_array_equal(tt._p.numpy(),
+                                  np.stack([np.asarray(jt._p0),
+                                            np.asarray(jt._p1)]))
+    for j, t in ((jc, tc), (jt, tt), (JaxElectricity(),
+                                      ElectricityLikeGenerator())):
+        assert (t.n_attrs, t.n_classes) == (j.n_attrs, j.n_classes)
+
+
+@pytest.mark.parametrize("name", ["covtype", "tweet", "electricity"])
+def test_classification_streams_match_jax_in_distribution(name):
+    """Shapes, dtypes, ranges and determinism; the class frequencies and
+    the per-column means within 0.02 of a JAX sample of 4000 instances."""
+    n = 4000
+    key = jax.random.PRNGKey(0)
+    if name == "covtype":
+        jx, jy = JaxCovtype().sample(key, n)
+        gen = CovtypeLikeGenerator(device=CPU)
+    elif name == "tweet":
+        jx, jy = JaxTweet().sample(key, n)
+        gen = RandomTweetGenerator(device=CPU)
+    else:
+        jx, jy = JaxElectricity().sample_classification(key, n)
+        gen = ElectricityLikeGenerator()
+    batches = list(StreamPipeline(gen, batch=n, n_batches=1, seed=0,
+                                  device=CPU))
+    x, y = batches[0]
+    assert x.shape == tuple(jx.shape) and y.shape == tuple(jy.shape)
+    assert x.dtype == torch.float32 and y.dtype == torch.int32
+    assert float(x.min()) >= 0.0 and float(x.max()) <= 1.0
+    C = gen.n_classes
+    assert int(y.min()) >= 0 and int(y.max()) < C
+    np.testing.assert_allclose(
+        np.bincount(y.numpy(), minlength=C) / n,
+        np.bincount(np.asarray(jy), minlength=C) / n, atol=0.02)
+    np.testing.assert_allclose(x.mean(0).numpy(), np.asarray(jx).mean(0),
+                               atol=0.02)
+    again = list(StreamPipeline(gen, batch=n, n_batches=1, seed=0,
+                                device=CPU))[0]
+    assert torch.equal(again[0], x) and torch.equal(again[1], y)
+    if name == "electricity":
+        _, target = list(StreamPipeline(gen, batch=n, n_batches=1, seed=0,
+                                        classification=False,
+                                        device=CPU))[0]
+        assert target.dtype == torch.float32
+        assert torch.equal((target > 0.5).to(torch.int32), y)

@@ -17,12 +17,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import KERNELS, launches, reset_launches
+from repro_torch.kernels import COUNTED, KERNELS, launches, reset_launches
 from repro_torch.kernels.rule_stats.ops import segment_sum
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.split_gain.ref import split_gain_ref
+from repro_torch.kernels.split_poisson.ops import split_poisson
+from repro_torch.kernels.split_poisson.ref import split_poisson_ref
 from repro_torch.kernels.tree_route.ref import tree_route_ref
 from repro_torch.kernels.vht_stats.ref import stats_update_ref
 
@@ -189,7 +191,7 @@ def _cpu_inputs():
 
 NO_LAUNCHES = {"tree_route": 0, "vht_stats": 0, "split_gain": 0,
                "rule_stats": 0, "selective_scan": 0, "flash_attention": 0,
-               "segment_sum": 0}
+               "segment_sum": 0, "split_poisson": 0}
 
 
 def _lm_inputs(device="cpu"):
@@ -203,6 +205,14 @@ def _lm_inputs(device="cpu"):
            torch.randn((1, 7, 2, 16), generator=g),
            torch.randn((1, 7, 2, 16), generator=g)]
     return [t.to(device) for t in scan], [t.to(device) for t in qkv]
+
+
+def _poisson_inputs(device="cpu"):
+    """split_poisson's key and boosting-like rates [3, 16], on ``device``."""
+    from repro_torch.core.prng import PRNGKey
+    lam = 1.0 + 2.0 * torch.rand((3, 16), generator=torch.Generator()
+                                 .manual_seed(2))
+    return PRNGKey(5, "cpu").to(device), lam.to(device)
 
 
 def test_wrappers_take_the_plain_path_on_cpu_without_counting():
@@ -224,6 +234,10 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
         assert torch.equal(got, want)
     assert torch.equal(KERNELS["flash_attention"](*qkv, window=3),
                        flash_attention_ref(*qkv, window=3))
+    key, lam = _poisson_inputs()
+    for got, want in zip(split_poisson(key, lam, (3, 16)),
+                         split_poisson_ref(key, lam, (3, 16))):
+        assert got.dtype == want.dtype and torch.equal(got, want)
     assert launches() == NO_LAUNCHES
 
 
@@ -249,6 +263,9 @@ def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
         KERNELS["selective_scan"](*scan)
     with pytest.raises(ValueError):
         KERNELS["flash_attention"](*qkv)
+    key, lam = _poisson_inputs("meta")
+    with pytest.raises(ValueError):
+        split_poisson(key, lam, (3, 16))
     assert launches() == NO_LAUNCHES
 
 
@@ -270,6 +287,40 @@ def test_amrules_default_device_is_cuda_and_raises_without_one(monkeypatch):
         WaveformGenerator()
     assert AMRules(rc, device="cpu").init()["stats"].device.type == "cpu"
 
+
+
+def test_split_poisson_is_counted_apart_from_the_tpu_counterparts():
+    """split_poisson replaces no TPU kernel: its launches are counted, but
+    it is not among the counterparts of the JAX package's Pallas kernels."""
+    assert COUNTED["split_poisson"] is split_poisson
+    assert "split_poisson" not in KERNELS
+    assert (PORT / "csrc" / "split_poisson.cu").exists()
+
+
+def test_ensembles_default_device_is_cuda_and_raise_without_one(monkeypatch):
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.data.generators import (CovtypeLikeGenerator,
+                                             RandomTweetGenerator)
+    from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import ShardingEnsemble
+    from repro_torch.core.prng import PRNGKey
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tc = TreeConfig(n_attrs=4)
+    for make in (lambda: OzaEnsemble(EnsembleConfig(tc)).init(),
+                 lambda: ShardingEnsemble(tc, 2).init(),
+                 lambda: JitEngine().init(ShardingEnsemble(tc, 2)),
+                 lambda: PrequentialEvaluation(ShardingEnsemble(tc, 2),
+                                               []).run(),
+                 lambda: PRNGKey(0), CovtypeLikeGenerator,
+                 RandomTweetGenerator):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    state = OzaEnsemble(EnsembleConfig(tc), device="cpu").init()
+    assert state["trees"]["stats"].device.type == "cpu"
+    assert state["key"].device.type == "cpu"
+    assert ShardingEnsemble(tc, 2, device="cpu").init()["stats"].shape[0] == 2
 
 
 def test_lm_default_device_is_cuda_and_raises_without_one(monkeypatch):
