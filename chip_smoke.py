@@ -126,9 +126,11 @@ ENS_M, ENS_BATCHES, ENS_DET_BATCHES, SWITCH_AT = 10, 100, 50, 30
 # the H100 SXM's INT32 rate: 64 INT32 lanes an SM (Hopper white paper),
 # 132 SMs, 1.98 GHz boost clock
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# split_poisson's integer operations per round of Knuth's loop: three
-# threefry2x32 hashes of about 80 add, rotate and xor operations each
-THREEFRY_OPS, OPS_PER_ROUND = 80, 3 * 80
+# split_poisson's integer operations: a threefry2x32 hash (about 80 add,
+# rotate and xor operations) for each draw's uniform in each of its rounds
+# of Knuth's loop, and two a round for the whole launch (the next key and
+# the round's subkey, the same for every draw) up to the longest draw
+THREEFRY_OPS = 80
 # the LM serving path: prefill of LM_B prompts of LM_S tokens; serve replays
 # SERVE_PROMPT tokens into the caches and decodes SERVE_GEN
 LM_B, LM_S, SERVE_PROMPT, SERVE_GEN, PROFILE_DECODE = 4, 2048, 256, 32, 8
@@ -1322,6 +1324,7 @@ def ensemble_kernels(st, xb, smi):
     reset as the JAX package writes it, where(drift, fresh, old) over
     every leaf, against the port's gated form, both for one member."""
     import torch
+    from repro_torch.core.prng import ROUNDS
     from repro_torch.core.pytree import tree_clone, tree_map
     from repro_torch.kernels.split_poisson.ops import split_poisson
     from repro_torch.kernels.split_poisson.ref import split_poisson_ref
@@ -1359,19 +1362,21 @@ def ensemble_kernels(st, xb, smi):
     require(same_state({"k": k_got, "w": w_got}, {"k": k_want, "w": w_want}),
             "split_poisson differs from its plain version")
     rounds = int((w_got + 1).sum())            # Knuth's rounds these draws take
+    max_draw = int(w_got.max())
     moved = M * 4 + M * B * 4 + 16
-    ops = rounds * OPS_PER_ROUND + 2 * THREEFRY_OPS
+    # the shared chain: max_draw + 1 rounds, and the first split
+    ops = (rounds + 2 * (max_draw + 2)) * THREEFRY_OPS
     bound_ms, bound_by = bound(moved, ops, INT32_OPS_PER_S)
     kt = timed(lambda: split_poisson(key, lam, (M, B)))
     pt = timed(lambda: split_poisson_ref(key, lam, (M, B)), n=10, reps=3)
     poisson = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
-               "ops": ops, "rounds": rounds, "max_draw": int(w_got.max()),
+               "ops": ops, "rounds": rounds, "max_draw": max_draw,
                "library_ms": None}
     log(f"split_poisson [{M},{B}] (bagging, lam 1; {rounds} rounds, largest "
         f"draw {poisson['max_draw']}; bit for bit its plain version): device "
         f"ms {kt['ms']:.5f}, plain {pt['ms']:.5f} (its loop reads the host "
-        f"each round), bound {bound_ms:.3g} ({bound_by}, INT32 at "
+        f"every {ROUNDS} rounds), bound {bound_ms:.3g} ({bound_by}, INT32 at "
         f"{INT32_OPS_PER_S / 1e12:.1f} TOP/s), kernel/bound "
         f"{kt['ms'] / bound_ms:.0f}, call ms {kt['call_ms']:.5f} on {smi}")
 

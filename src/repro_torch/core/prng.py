@@ -37,6 +37,8 @@ MASK = 0xFFFFFFFF
 # the key-schedule parity word
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 PARITY = 0x1BD11BDA
+# Knuth's rounds that poisson_knuth draws in one pass
+ROUNDS = 8
 
 
 def words(key) -> torch.Tensor:
@@ -65,8 +67,8 @@ def _rotl(v, r):
 
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash of the counter words (x1, x2) under the key
-    words (k1, k2): int64 tensors of 32-bit values, broadcast together.
-    Returns the two output words."""
+    words (k1, k2): int64 tensors of 32-bit values, or Python ints,
+    broadcast together.  Returns the two output words."""
     ks = (k1, k2, k1 ^ k2 ^ PARITY)
     x1 = (x1 + ks[0]) & MASK
     x2 = (x2 + ks[1]) & MASK
@@ -110,10 +112,14 @@ def random_bits(key, shape) -> torch.Tensor:
     return _bits_words(words(key), tuple(shape))
 
 
-def _uniform_words(k, shape):
-    mant = (_bits_words(k, shape) >> 9) | 0x3F800000
+def _uniform_of(bits):
+    mant = (bits >> 9) | 0x3F800000
     # [1, 2) minus 1 is exact, so JAX's max(0, .) after it changes nothing
     return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _uniform_words(k, shape):
+    return _uniform_of(_bits_words(k, shape))
 
 
 def uniform(key, shape) -> torch.Tensor:
@@ -130,20 +136,34 @@ def poisson_knuth(key, lam, shape) -> torch.Tensor:
     loop ends when no element is above (a host read each round, which is
     why the card launches the ``split_poisson`` kernel instead).  An
     element that is done keeps its count, so its draw depends only on
-    its own uniforms.  Rates of 10 and more take JAX's rejection sampler,
-    which is not ported: ``ValueError``."""
+    its own uniforms, and rounds past the end change no count: the
+    rounds go in groups of ``ROUNDS``, their keys hashed on the host in
+    Python ints and their uniforms at every element in one pass.  Rates
+    of 10 and more take JAX's rejection sampler, which is not ported:
+    ``ValueError``."""
     shape = tuple(shape)
     lam = torch.broadcast_to(lam.to(torch.float32), shape)
     if bool((lam >= 10).any()):
         raise ValueError("poisson_knuth takes rates below 10 only")
-    rng = words(key)
-    k = torch.zeros(shape, dtype=torch.int32, device=lam.device)
-    log_prod = torch.zeros(shape, dtype=torch.float32, device=lam.device)
-    while bool((log_prod > -lam).any()):
-        keys = _split_words(rng, 2)
-        rng, sub = keys[0], keys[1]
-        k = torch.where(log_prod > -lam, k + 1, k)
-        log_prod = log_prod + torch.log(_uniform_words(sub, shape))
+    dev = lam.device
+    r1, r2 = words(key).tolist()
+    hi, lo = _counters(lam.numel(), dev)
+    k = torch.zeros(shape, dtype=torch.int32, device=dev)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=dev)
+    active = log_prod > -lam
+    while bool(active.any()):
+        subs = []
+        for _ in range(ROUNDS):
+            # the split: this round's key (0, 1) and the next round's (0, 0)
+            subs.append(threefry2x32(r1, r2, 0, 1))
+            r1, r2 = threefry2x32(r1, r2, 0, 0)
+        subs = torch.tensor(subs, dtype=torch.int64, device=dev)
+        b1, b2 = threefry2x32(subs[:, :1], subs[:, 1:], hi, lo)
+        logs = torch.log(_uniform_of(b1 ^ b2)).reshape((ROUNDS,) + shape)
+        for i in range(ROUNDS):
+            k = torch.where(active, k + 1, k)
+            log_prod = log_prod + logs[i]
+            active = log_prod > -lam
     return torch.where(lam == 0, 0, k - 1).to(torch.int32)
 
 

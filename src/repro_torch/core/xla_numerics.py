@@ -8,7 +8,7 @@ from the first element.  PyTorch rounds every product, and its
 card.  Whole-array sums in XLA's order are ``kernels.rule_stats.batch_sum``.
 XLA's float32 square root is the processor's, correctly rounded; PyTorch's
 vectorized one on the CPU can miss by an ulp.  XLA divides by a scalar
-constant as a product with its float32 reciprocal (``div_const``).
+constant as a product with its float32 reciprocal (``reciprocal``).
 """
 
 from __future__ import annotations
@@ -31,13 +31,12 @@ def fma(a, b, c):
     return (wide(a) * wide(b) + wide(c)).float()
 
 
-def div_const(x, c):
-    """``x / c`` for a Python number ``c``, as XLA's CPU backend computes a
-    division by a scalar constant (``jnp.mean`` over a fixed axis, too):
-    ``x`` times the float32 reciprocal of ``c``, which differs from the
-    quotient in the last bit where ``1 / c`` is not exact.  A float64
-    ``x`` gives the product unrounded (exact, for float32 factors)."""
-    return x * float(np.float32(1.0) / np.float32(c))
+def reciprocal(c):
+    """The float32 reciprocal of a Python number ``c``, as a Python float.
+    XLA's CPU backend divides by a scalar constant (``jnp.mean`` over a
+    fixed axis, too) as a product with it, which differs from the quotient
+    in the last bit where ``1 / c`` is not exact."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def sqrt(x):

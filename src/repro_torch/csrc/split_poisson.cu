@@ -8,7 +8,7 @@
 // every round splits the key, draws a uniform for each element and ends
 // when no element's running sum of log-uniforms is above -lam.  Its plain
 // PyTorch version (core/prng.py::poisson_knuth) reads that condition on
-// the host each round, so it cannot be captured in a CUDA graph.
+// the host, so it cannot be captured in a CUDA graph.
 //
 // The generator is threefry2x32 with jax_threefry_partitionable (JAX's
 // default): split key i is the hash of the counter pair (0, i); the 32
@@ -29,12 +29,16 @@
 // bit for bit there.  Thread 0 writes key' to its own output: the input
 // key is read by every block, so it is not overwritten in place.
 //
-// What bounds it on the H100: integer work, about 3 hashes of 20 rounds
-// (some 80 add, rotate and xor operations each) per round, lam + 1 rounds
-// a draw on average, at the INT32 rate; a few hundredths of a microsecond
-// for the ensembles' 10 x 512 draws.  Its bytes (lam read, w written) are
-// fewer.  The longest thread (the largest draw) and the launch set its
-// time.
+// What bounds it on the H100: integer work at the INT32 rate.  The
+// function needs one hash of 20 rounds (some 80 add, rotate and xor
+// operations) for each draw's uniform in each of its lam + 1 rounds on
+// average, and two a round for the whole launch (the next key and the
+// round's subkey, the same for every draw); a few hundredths of a
+// microsecond for the ensembles' 10 x 512 draws.  Its bytes (lam read, w
+// written) are fewer.  This kernel hashes the shared two in every thread,
+// three times the work the function needs, and each of its rounds waits
+// on two dependent hashes: the longest thread (the largest draw) and the
+// launch set its time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -12,11 +12,10 @@ a sum on the CPU, the port takes the fused multiply-add
 (``core.xla_numerics.fma``), so the states match the JAX package's bit for
 bit.
 
-The monitored value may come as a float64 tensor: an exact product not
-yet rounded (the ensembles' error rate, a count times XLA's float32
-``1 / B``).  XLA fuses that product into the detector's first sums, so
-each sum it enters is rounded once to float32 (``_plus``); elsewhere it is
-rounded first.
+The monitored value may come as a product ``x * scale`` (the ensembles'
+error rate: a count of errors times XLA's float32 ``1 / B``).  XLA fuses
+that product into the first sums it enters, each rounded once to float32
+(``_plus``); elsewhere the product is rounded first.
 
 ADWIN here is the exponential-bucket variant with a fixed number of bucket
 rows (capacity-bounded): adjacent-subwindow mean comparison with the
@@ -81,10 +80,16 @@ def _scalars(device, **values):
             for k, v in values.items()}
 
 
-def _plus(x, c):
-    """``x + c`` in float32; a float64 ``x`` (an unrounded product) is
-    added first and the sum rounded once, as XLA's fused multiply-add."""
-    return (x + c).float() if x.dtype == torch.float64 else x + c
+def _plus(x, c, scale=None):
+    """``x * scale + c`` rounded once to float32, as XLA's fused
+    multiply-add; ``x + c`` without a scale."""
+    return x + c if scale is None else fma(x, scale, c)
+
+
+def _value(x, scale=None):
+    """The monitored value ``x * scale`` (``x`` without a scale), rounded
+    to float32."""
+    return x if scale is None else x * scale
 
 
 def _reset_where(drift, fresh, new):
@@ -98,11 +103,11 @@ def ph_init(device=None):
     return _scalars(device, m=0.0, min=0.0, mean=0.0, n=0.0)
 
 
-def ph_update(state, x, pc: PageHinkleyConfig | None = None):
+def ph_update(state, x, pc: PageHinkleyConfig | None = None, scale=None):
     pc = pc if pc is not None else PageHinkleyConfig()
     n = state["n"] + 1
-    mean = state["mean"] + _plus(x, -state["mean"]) / n
-    m = _plus(x, state["m"]) - mean - pc.alpha
+    mean = state["mean"] + _plus(x, -state["mean"], scale) / n
+    m = _plus(x, state["m"], scale) - mean - pc.alpha
     mn = torch.minimum(state["min"], m)
     drift = m - mn > pc.lam
     return {"m": m, "min": mn, "mean": mean, "n": n}, drift
@@ -114,11 +119,11 @@ def ddm_init(device=None):
     return _scalars(device, n=0.0, p=1.0, s=0.0, pmin=1e9, smin=1e9)
 
 
-def ddm_update(state, error, dc: DdmConfig | None = None):
+def ddm_update(state, error, dc: DdmConfig | None = None, scale=None):
     """error: the misclassification rate (0/1 for one instance)."""
     dc = dc if dc is not None else DdmConfig()
     n = state["n"] + 1
-    p = state["p"] + _plus(error, -state["p"]) / n
+    p = state["p"] + _plus(error, -state["p"], scale) / n
     s = sqrt(p * (1 - p) / torch.clamp(n, min=1.0))
     # only track minima once the estimate has stabilized, otherwise an
     # early lucky streak (p=0, s=0) makes every later point look like drift
@@ -137,11 +142,11 @@ def eddm_init(device=None):
                     m2smax=0.0, n_err=0.0)
 
 
-def eddm_update(state, error, ec: EddmConfig | None = None):
+def eddm_update(state, error, ec: EddmConfig | None = None, scale=None):
     """Distance-between-errors detector."""
     ec = ec if ec is not None else EddmConfig()
     n = state["n"] + 1
-    is_err = error.float() > 0.5
+    is_err = _value(error, scale) > 0.5
     dist = n - state["last_err"]
     n_err = state["n_err"] + is_err
     delta = dist - state["mean_d"]
@@ -172,13 +177,17 @@ def adwin_init(ac: AdwinConfig | None = None, device=None):
             "n": torch.zeros((), dtype=f32, device=dev)}
 
 
-def _adwin(s, c, n, x, ac: AdwinConfig):
-    """The ADWIN update on histograms [..., n_buckets] (bucket 0 newest)
-    and values x [...]: the cascade of overflowing buckets one level
-    down, the prefix/suffix cut scan, and, on drift, the eviction of the
-    oldest half of the window."""
+def adwin_update(state, x, ac: AdwinConfig | None = None, scale=None):
+    """Exponential-histogram ADWIN (bucket 0 newest) of one detector, or
+    of a packed [N, n_buckets] bank with values x [N] in one tensor pass:
+    when a bucket's count reaches twice its capacity it cascades into the
+    next (a soft cascade each step, capacity-bounded); then the
+    prefix/suffix cut scan, and, on drift, the eviction of the oldest half
+    of the window."""
+    ac = ac if ac is not None else AdwinConfig()
+    s, c, n = state["sum"], state["cnt"], state["n"]
     nb = ac.n_buckets
-    s = torch.cat([_plus(x[..., None], s[..., :1]), s[..., 1:]], -1)
+    s = torch.cat([_plus(x[..., None], s[..., :1], scale), s[..., 1:]], -1)
     c = torch.cat([c[..., :1] + 1.0, c[..., 1:]], -1)
     cap = 2.0 ** torch.arange(nb, dtype=f32, device=s.device)
     overflow = c >= 2 * cap
@@ -217,20 +226,6 @@ def _adwin(s, c, n, x, ac: AdwinConfig):
     return {"sum": s, "cnt": c, "n": n}, drift
 
 
-def adwin_update(state, x, ac: AdwinConfig | None = None):
-    """Exponential-histogram ADWIN of one detector (bucket 0 newest): when
-    a bucket's count reaches twice its capacity it cascades into the next
-    (a soft cascade each step, capacity-bounded)."""
-    ac = ac if ac is not None else AdwinConfig()
-    return _adwin(state["sum"], state["cnt"], state["n"], x, ac)
-
-
-def _adwin_update_batch(state, x, ac: AdwinConfig):
-    """All rows of a packed [N, n_buckets] ADWIN state in one tensor pass,
-    the per-row arithmetic of ``adwin_update``."""
-    return _adwin(state["sum"], state["cnt"], state["n"], x, ac)
-
-
 # ---------------------------- PH-over-EMA (AMRules) --------------------------
 
 def phema_init(device=None):
@@ -261,10 +256,9 @@ class DetectorBank:
     """N change detectors of one family as a packed struct-of-arrays state.
 
     Every leaf of the scalar state gains a leading ``[N]`` axis; ``update``
-    advances all N in one batched pass (the PH, DDM, EDDM and PH-over-EMA
-    recurrences are elementwise, so the scalar updates run unchanged on
-    the packed state; ADWIN takes its batched histogram pass).  ``reset``
-    re-initializes a masked subset of rows."""
+    advances all N in one batched pass (every recurrence is elementwise
+    over the detectors, so the scalar updates run unchanged on the packed
+    state).  ``reset`` re-initializes a masked subset of rows."""
 
     def __init__(self, family: str, n: int, config=None, device=None):
         if family not in FAMILIES:
@@ -291,18 +285,19 @@ class DetectorBank:
         one = self._init_one(self.device)
         return tree_map(lambda x: x.expand(self.n, *x.shape).clone(), one)
 
-    def update(self, state, x, has=None):
-        """x: [N] monitored values, one per detector.  ``has`` ([N] bool)
-        is honoured by the ph_ema family only (rules with no covered
-        instance this step).  Returns (state, drift [N] bool)."""
+    def update(self, state, x, has=None, scale=None):
+        """x: [N] monitored values, one per detector, or with ``scale``
+        the values ``x * scale`` (``_plus``).  ``has`` ([N] bool) is
+        honoured by the ph_ema family only (rules with no covered instance
+        this step).  Returns (state, drift [N] bool)."""
         if self.family == "ph":
-            return ph_update(state, x, self.config)
+            return ph_update(state, x, self.config, scale)
         if self.family == "ddm":
-            return ddm_update(state, x, self.config)
+            return ddm_update(state, x, self.config, scale)
         if self.family == "eddm":
-            return eddm_update(state, x, self.config)
+            return eddm_update(state, x, self.config, scale)
         if self.family == "adwin":
-            return _adwin_update_batch(state, x, self.config)
+            return adwin_update(state, x, self.config, scale)
         return phema_update(state, x, self.config, has=has)
 
     def reset(self, state, mask):

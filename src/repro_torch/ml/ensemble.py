@@ -23,9 +23,8 @@ A step:
     pass when any leaf is due; ``gate_members=False`` runs it always (the
     oracle).  The full pass takes one ``split_gain`` launch over the
     flattened pool, whose rows are independent;
-  * updates the detectors (``detector_impl="bank"``: one packed
-    ``DetectorBank`` pass; ``"vmap"``: a loop of the scalar updates, the
-    oracle) and resets the drifted members.
+  * updates the detectors in one packed ``DetectorBank`` pass and resets
+    the drifted members.
 
 Where the JAX package vmaps over members, the port runs batched tensor
 ops or a Python loop over members; where it gates with ``lax.cond``, the
@@ -38,25 +37,24 @@ gated on any drift, and clears a drifted member's statistics in place.
 
 The JAX package's ``state_sharding`` and its ``shard_map`` form of the
 pooled check belong to the distributed runtime, which the port does not
-have yet; its ``route_impl`` picks among TPU routers, and the port takes
-only ``None`` (the ``tree_route`` kernel on the card, its plain version on
-the CPU).
+have yet.  Its ``route_impl`` picks among TPU routers and its
+``detector_impl="vmap"`` among detector programs; the port routes with
+the ``tree_route`` kernel (its plain version on the CPU) and updates the
+detectors as one bank, and takes neither option.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.core.compiled import gate
 from repro_torch.core.pytree import scan, tree_clone
-from repro_torch.core.xla_numerics import div_const
+from repro_torch.core.xla_numerics import reciprocal
 from repro_torch.kernels.split_poisson.ops import split_poisson
-from repro_torch.ml import detectors, htree
+from repro_torch.ml import htree
 from repro_torch.ml.detectors import DetectorBank
 from repro_torch.ml.htree import TreeConfig
 
@@ -75,33 +73,6 @@ class EnsembleConfig:
     split_check: str = "pool"    # pool (a gathered tile of the flattened
                                  # [M*N] pool) | member (the full pass
                                  # behind the any-due gate)
-    route_impl: str | None = None  # None only: see the module docstring
-    detector_impl: str = "bank"  # bank (packed tensor pass) | vmap (oracle)
-
-
-def vote(trees, leaf, n_classes: int):
-    """Each member's class at its leaf (the first of equal counts, as
-    ``jnp.argmax``) -> votes [M, B], and the majority over members, the
-    lowest class among ties -> pred [B]."""
-    C = n_classes
-    counts = torch.gather(trees["class_counts"], 1,
-                          leaf.long()[:, :, None].expand(-1, -1, C))
-    votes = counts.argmax(-1)
-    pred = F.one_hot(votes, C).to(f32).sum(0).argmax(-1)
-    return votes, pred
-
-
-def restack(stacked, members):
-    """The members' trees stacked on a leading axis again: a leaf that
-    every member updated in place (its own row of ``stacked``, as the
-    statistics) stays as it is; every other leaf is stacked anew."""
-    out = {}
-    for k, whole in stacked.items():
-        rows = [m[k] for m in members]
-        same = all(r.data_ptr() == whole[i].data_ptr() and
-                   r.shape == whole[i].shape for i, r in enumerate(rows))
-        out[k] = whole if same else torch.stack(rows)
-    return out
 
 
 class OzaEnsemble:
@@ -109,19 +80,11 @@ class OzaEnsemble:
     trees, a packed detector bank and a PRNG key, and an eager step."""
 
     def __init__(self, ec: EnsembleConfig, device=None):
-        if ec.route_impl is not None:
-            raise ValueError(
-                f"route_impl={ec.route_impl!r}: the port routes with its "
-                "tree_route kernel on the card and its plain version on the "
-                "CPU, picked by the tensors' device; pass None")
         if ec.split_check not in ("pool", "member"):
             raise ValueError(f"unknown split check {ec.split_check!r}")
-        if ec.detector_impl not in ("bank", "vmap"):
-            raise ValueError(f"unknown detector impl {ec.detector_impl!r}")
         self.ec = ec
         self.tc = ec.tree
         self.device = device
-        self._ac = detectors.AdwinConfig()
         # the four documented member-detector families; "none" (and any
         # other name) means no detector
         self._bank = (DetectorBank(ec.detector, ec.n_members, device=device)
@@ -171,7 +134,7 @@ class OzaEnsemble:
         B = y.shape[0]
         trees = state["trees"]
         leaf = htree.route_members(trees, xbin, tc)           # [M, B]
-        votes, pred = vote(trees, leaf, tc.n_classes)
+        votes, pred = htree.vote(trees, leaf, tc.n_classes)
         correct = (pred == y).to(f32).sum()
         key, w = self.member_weights(state["key"], votes, y)
         trees = htree.update_stats_members(trees, leaf, xbin, y, w, tc)
@@ -179,30 +142,18 @@ class OzaEnsemble:
         det = state["det"]
         n_drift = torch.zeros((), dtype=f32, device=y.device)
         if det is not None:
-            # jnp.mean: the sum (of 0/1, exact) times XLA's float32 1 / B,
-            # a product XLA fuses into the detectors' first sums: handed
-            # on unrounded, in float64, where it is exact
-            member_err_rate = div_const(
-                (votes != y[None]).to(torch.float64).sum(-1), B)
-            det, drift = self._det_update(det, member_err_rate)
+            # the error rate, jnp.mean: the count of errors (exact) times
+            # XLA's float32 1 / B, a product that XLA fuses into the
+            # detectors' first sums
+            member_err = (votes != y[None]).to(f32).sum(-1)
+            det, drift = self._bank.update(det, member_err,
+                                           scale=reciprocal(B))
             trees = self._reset_members(trees, drift)
             n_drift = drift.sum().to(f32)
         metrics = {"correct": correct,
                    "seen": torch.full((), B, dtype=f32, device=y.device),
                    "drifts": n_drift}
         return {"trees": trees, "det": det, "key": key}, metrics
-
-    def _det_update(self, det, err_rate):
-        if self.ec.detector_impl == "bank":
-            return self._bank.update(det, err_rate)
-        # the oracle: one scalar detector update per member
-        fn = {"adwin": partial(detectors.adwin_update, ac=self._ac),
-              "ddm": detectors.ddm_update, "eddm": detectors.eddm_update,
-              "ph": detectors.ph_update}[self.ec.detector]
-        outs = [fn({k: v[i] for k, v in det.items()}, err_rate[i])
-                for i in range(self.ec.n_members)]
-        return ({k: torch.stack([o[0][k] for o in outs]) for k in det},
-                torch.stack([o[1] for o in outs]))
 
     def _reset_members(self, trees, drift):
         """Drifted members become fresh trees: their statistics cleared in
@@ -299,4 +250,4 @@ class OzaEnsemble:
         return scan(self.step, tree_clone(state), x_stream, y_stream)
 
 
-__all__ = ["DETECTORS", "EnsembleConfig", "OzaEnsemble", "restack", "vote"]
+__all__ = ["DETECTORS", "EnsembleConfig", "OzaEnsemble"]

@@ -130,6 +130,31 @@ def route_members(trees, xbin, tc: TreeConfig):
                       trees["children"], xbin, max_depth=tc.max_depth)
 
 
+def vote(trees, leaf, n_classes: int):
+    """Each member's class at its leaf (the first of equal counts, as
+    ``jnp.argmax``) -> votes [M, B], and the majority over members, the
+    lowest class among ties -> pred [B]."""
+    C = n_classes
+    counts = torch.gather(trees["class_counts"], 1,
+                          leaf.long()[:, :, None].expand(-1, -1, C))
+    votes = counts.argmax(-1)
+    pred = F.one_hot(votes, C).to(f32).sum(0).argmax(-1)
+    return votes, pred
+
+
+def restack(stacked, members):
+    """The members' trees stacked on a leading axis again: a leaf that
+    every member updated in place (its own row of ``stacked``, as the
+    statistics) stays as it is; every other leaf is stacked anew."""
+    out = {}
+    for k, whole in stacked.items():
+        rows = [m[k] for m in members]
+        same = all(r.data_ptr() == whole[i].data_ptr() and
+                   r.shape == whole[i].shape for i, r in enumerate(rows))
+        out[k] = whole if same else torch.stack(rows)
+    return out
+
+
 def predict(state, xbin, tc: TreeConfig):
     leaf = route(state, xbin, tc)
     counts = state["class_counts"][leaf.long()]
@@ -407,6 +432,6 @@ def _apply_splits_impl(state, split_mask, best_attr, best_bin, tc: TreeConfig,
 
 __all__ = ["NEG", "TreeConfig", "apply_splits", "child_counts_from_stats",
            "decide_splits", "due_topk", "gated_check", "gather_decide_tile",
-           "hoeffding_bound", "init_tree", "predict", "route",
+           "hoeffding_bound", "init_tree", "predict", "restack", "route",
            "route_members", "scatter_rows", "split_gains", "top_k",
-           "update_stats", "update_stats_members"]
+           "update_stats", "update_stats_members", "vote"]

@@ -30,7 +30,6 @@ from repro_torch.core.topology import Processor, Topology, TopologyBuilder
 from repro_torch.device import resolve_device
 from repro_torch.kernels.vht_stats.ops import stats_update
 from repro_torch.ml import htree
-from repro_torch.ml.ensemble import restack, vote
 from repro_torch.ml.htree import TreeConfig
 
 f32 = torch.float32
@@ -207,7 +206,7 @@ class ShardingEnsemble:
     def step(self, states, xbin, y):
         B, p = y.shape[0], self.p
         leaf = htree.route_members(states, xbin, self.tc)       # [p, B]
-        _, pred = vote(states, leaf, self.tc.n_classes)
+        _, pred = htree.vote(states, leaf, self.tc.n_classes)
         correct = (pred == y).to(f32).sum()
         # shuffle-group training: shard the batch across the ensemble
         n = (B // p) * p
@@ -215,7 +214,7 @@ class ShardingEnsemble:
         ys = y[:n].reshape(p, B // p)
         members = [self._vht.step({k: v[i] for k, v in states.items()},
                                   xs[i], ys[i])[0] for i in range(p)]
-        states = restack(states, members)
+        states = htree.restack(states, members)
         return states, {"correct": correct,
                         "seen": torch.full((), B, dtype=f32, device=y.device),
                         "dropped": torch.zeros((), dtype=f32, device=y.device),
