@@ -58,7 +58,28 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  ms, syncs and launches per step and the busy share, eager
                  against compiled.  Last, a short final batch (200 of 512
                  rows) compiled against eager for VHT and OzaBag.
-  8. lm       -- the LM zoo's serving path at full width, one model at a
+  8. clustream -- CluStream (paper section 5) on the chunked stream
+                 runtime at the arms of benchmarks/clustream_benchmarks.py:
+                 d128-K256 (the main path, step mode) and d32-K100,
+                 CluStreamConfig(n_macro=8, period=4096), B = 512, 200
+                 batches of its blob stream (numpy, from the seed) in 25
+                 chunks of 8 (the period aligned to the chunk), staged to
+                 the card by the stream's producer.  Each arm in step and
+                 boundary mode three ways: eagerly with the kernels
+                 (LocalEngine's ChunkedStream loop), compiled
+                 (ChunkedPrequentialEvaluation on JitEngine) and eagerly
+                 with the plain versions; per-batch seen, ssq and n_active
+                 and the final state bit for bit alike, segment_sum
+                 launched (the CF scatter, the kernel's wide form for
+                 x | x^2), the macro phase run, and boundary mode's final
+                 state equal to step mode's.  On the main arm in boundary
+                 mode a run with checkpoints, killed after its middle
+                 checkpoint and resumed, must end as the uninterrupted
+                 run.  Prints the wide segment_sum on the main path's last
+                 batch against its plain version, index_add_ and its
+                 bound, syncs per step (0 in a captured step) and the busy
+                 share, eager against compiled.
+  9. lm       -- the LM zoo's serving path at full width, one model at a
                  time: falcon_mamba_7b (64 Mamba-1 layers, d_model 4096) and
                  qwen15_4b (40 attention layers, 20 heads of 128), random
                  weights from a seed.  The prefill step on 4 prompts of 2048
@@ -69,17 +90,20 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  32 greedy tokens), whose last replay logits must agree with
                  the prefill step on the same prompts.  Prints TTFT, decode
                  ms per step and tokens/s, and the device's busy share.
-  9. result   -- one JSON line of per-kernel numbers, then, as the last line,
+  10. result  -- one JSON line of per-kernel numbers (rule_stats as
+                 segment_sum on its own line, timed on the CluStream CF
+                 scatter), then, as the last line,
                  {"ok": true, "device": {...}}.
 
-Phases 4 to 8 also run each path compiled (src/repro_torch/core/
+Phases 4 to 9 also run each path compiled (src/repro_torch/core/
 compiled.py: each step one captured CUDA graph, its lax.cond gates
 conditional nodes on the device), after its eager kernel run and against
 it: the main path through PrequentialEvaluation (its default) and
 JitEngine.run_stream on the bare learner, the dense-20 and dense-200
 variants, the MA/LS topology on JitEngine against the StreamEngine, MAMR,
-VAMR and HAMR-2 on waveform-40, and both models' prompt replay and decode
-through one graph each.  Per-batch metrics and final states must be bit
+VAMR and HAMR-2 on waveform-40, the CluStream arms on JitEngine's chunked
+runtime, and both models' prompt replay and decode through one graph
+each.  Per-batch metrics and final states must be bit
 for bit the eager run's, the 32 tokens equal and the last logits inside
 the LM gate.  The replays of a captured step run with the card's sync
 debug mode set to raise; the main paths print their syncs per step, the
@@ -98,6 +122,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import re
@@ -131,6 +156,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # of Knuth's loop, and two a round for the whole launch (the next key and
 # the round's subkey, the same for every draw) up to the longest draw
 THREEFRY_OPS = 80
+# CluStream (benchmarks/clustream_benchmarks.py's arms): CS_CHUNKS chunks of
+# CS_CHUNK batches of B; the period, CS_CHUNK * B, aligned to the chunks
+CS_CHUNK, CS_CHUNKS, CS_PERIOD = 8, 25, 4096
 # the LM serving path: prefill of LM_B prompts of LM_S tokens; serve replays
 # SERVE_PROMPT tokens into the caches and decodes SERVE_GEN
 LM_B, LM_S, SERVE_PROMPT, SERVE_GEN, PROFILE_DECODE = 4, 2048, 256, 32, 8
@@ -265,8 +293,8 @@ def route_steps(sa, sb, ch, xbin, max_depth):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the VHT, ensemble, AMRules and LM paths through the plain
-    PyTorch versions of the six kernels and of split_poisson, on the
+    """Route the VHT, ensemble, AMRules, CluStream and LM paths through the
+    plain PyTorch versions of the six kernels and of split_poisson, on the
     card, for a reference run."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
@@ -275,7 +303,8 @@ def plain_kernels():
     from repro_torch.kernels.split_poisson.ref import split_poisson_ref
     from repro_torch.kernels.tree_route.ref import tree_route_ref
     from repro_torch.kernels.vht_stats.ref import stats_update_ref
-    from repro_torch.ml import amrules, ensemble, htree, vht
+    from repro_torch.kernels.rule_stats.ops import batch_sum
+    from repro_torch.ml import amrules, clustream, ensemble, htree, vht
     from repro_torch.models import layers
 
     def route_plain(sa, sb, ch, xbin, *, max_depth):
@@ -287,11 +316,15 @@ def plain_kernels():
     saved = (htree.tree_route, htree.stats_update, htree.split_gain,
              vht.stats_update, amrules.rule_stats_scatter,
              amrules.segment_sum, layers.selective_scan,
-             layers.flash_attention, ensemble.split_poisson)
+             layers.flash_attention, ensemble.split_poisson,
+             clustream.segment_sum, clustream.batch_sum)
     htree.tree_route, htree.split_gain = route_plain, split_gain_ref
     ensemble.split_poisson = split_poisson_ref
     htree.stats_update = vht.stats_update = stats_update_ref
     amrules.rule_stats_scatter = amrules.segment_sum = rule_stats_scatter_ref
+    clustream.segment_sum = rule_stats_scatter_ref
+    clustream.batch_sum = functools.partial(batch_sum,
+                                            scatter=rule_stats_scatter_ref)
     layers.selective_scan = selective_scan_ref
     layers.flash_attention = flash_attention_ref
     try:
@@ -300,7 +333,8 @@ def plain_kernels():
         (htree.tree_route, htree.stats_update, htree.split_gain,
          vht.stats_update, amrules.rule_stats_scatter,
          amrules.segment_sum, layers.selective_scan,
-         layers.flash_attention, ensemble.split_poisson) = saved
+         layers.flash_attention, ensemble.split_poisson,
+         clustream.segment_sum, clustream.batch_sum) = saved
 
 
 class Recording:
@@ -1557,6 +1591,299 @@ def log_kernel(name, e):
         f"{e.get('library_call_ms')}")
 
 
+def blob_stream(d, n_batches, seed=0, n_blobs=8):
+    """benchmarks/clustream_benchmarks.py's _blob_stream, drawn with numpy
+    from the seed: [n_batches, B, d] float32 points 0.05 (normal) around
+    8 centers uniform in [0, 1)^d, made on the host before the clock
+    starts (the chunked stream stages them on the card chunk by chunk)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(size=(n_blobs, d))
+    c = rng.integers(0, n_blobs, (n_batches, B))
+    x = centers[c] + 0.05 * rng.standard_normal((n_batches, B, d))
+    return x.astype(np.float32)
+
+
+def clustream_segments(state, x, cc):
+    """Each instance's CF segment as ml/clustream.py's update takes it
+    (K = discard)."""
+    import torch
+    from repro_torch.ml import clustream as cs
+    d2 = cs.pairwise_d2(x, cs._centroids(state), cs._impl(cc))
+    nearest = torch.argmin(d2, -1)
+    ndist = cs.sqrt(torch.gather(d2, 1, nearest[:, None])[:, 0])
+    rad = cs._radius(state)[nearest] * cc.radius_factor + 1e-6
+    return torch.where(ndist <= rad, nearest, cc.n_micro).to(torch.int32)
+
+
+def kernel_cf_scatter(state, x, cc, smi):
+    """The wide segment_sum on the CF scatter's inputs at the end of the
+    main path: [K + 1, 1, 1, 2d] from zeros, x | x^2 of the last batch by
+    its segments.  Bit for bit its plain version; device ms beside its
+    bound, the plain version's and index_add_'s (atomics' order: no
+    replacement).  The 3-column launch (1 | t | t^2) is timed too."""
+    import torch
+    from repro_torch.kernels.rule_stats.ops import segment_sum
+    from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+    K, d = cc.n_micro, cc.n_dims
+    seg = clustream_segments(state, x, cc)
+    xb = torch.zeros((B, 1), dtype=torch.int32, device=x.device)
+    t = state["t"] + torch.arange(1, B + 1, dtype=torch.float32,
+                                  device=x.device)
+    out = {}
+    for what, vals in (("x|x^2", torch.cat([x, x * x], 1)),
+                       ("1|t|t^2", torch.stack([torch.ones_like(t), t,
+                                                t * t], 1))):
+        C = vals.shape[1]
+        zeros = torch.zeros((K + 1, 1, 1, C), device=x.device)
+        got = segment_sum(zeros.clone(), seg, xb, vals)
+        want = rule_stats_scatter_ref(zeros.clone(), seg, xb, vals)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"segment_sum CF scatter {what} differs from its plain "
+                "version")
+        work = zeros.clone()
+        kt = timed(lambda: segment_sum(work, seg, xb, vals))
+        pt = timed(lambda: rule_stats_scatter_ref(work, seg, xb, vals),
+                   n=10, reps=3)
+        scratch = torch.zeros((K + 1, C), device=x.device)
+        idx = seg.long()
+        lt = timed(lambda: scratch.index_add_(0, idx, vals))
+        # out read and written, seg and xbin read, vals read; one add each
+        moved = 2 * zeros.numel() * 4 + 2 * B * 4 + vals.numel() * 4
+        ops = B * C
+        bound_ms, bound_by = bound(moved, ops)
+        e = {"shape": [K + 1, 1, 1, C], "B": B, "ms": kt["ms"],
+             "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+             "plain_call_ms": pt["call_ms"], "library_ms": lt["ms"],
+             "library_call_ms": lt["call_ms"], "bytes": moved, "ops": ops,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "max_abs_err": max_abs_err(got, want),
+             "discarded": int((seg == K).sum())}
+        out[what] = e
+        log(f"segment_sum CF scatter {what} [{K + 1},1,1,{C}] B={B} on the "
+            f"main path's last batch ({e['discarded']} discarded; bit for "
+            f"bit its plain version): device ms {kt['ms']:.5f}, plain "
+            f"{pt['ms']:.5f}, index_add_ {lt['ms']:.5f}, bound "
+            f"{bound_ms:.6f} ({bound_by}, {moved} bytes), kernel/bound "
+            f"{kt['ms'] / bound_ms:.1f}, call ms {kt['call_ms']:.5f} on {smi}")
+    return out
+
+
+class XStep:
+    """A CluStream step (or a captured one) called as step(state, x, y),
+    the form count_syncs and profile_steps take."""
+
+    def __init__(self, step):
+        self._step = step
+
+    def step(self, state, x, y=None):
+        return self._step(state, x)
+
+
+def run_clustream(arm, d, K, mode, n_chunks, dev, smi):
+    """One CluStream arm and mode over n_chunks chunks of CS_CHUNK batches
+    of the blob stream: eagerly with the kernels (LocalEngine's
+    ChunkedStream loop, the launches counted), compiled
+    (ChunkedPrequentialEvaluation on JitEngine, its default, each step a
+    captured graph and the boundary hook one more), and eagerly with the
+    plain versions: per-batch metrics and the final state bit for bit
+    alike.  Returns (result, the eager run's states, launches)."""
+    import torch
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.core.evaluation import (ChunkedPrequentialEvaluation,
+                                             stack_outputs)
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.rule_stats.ops import segment_sum
+    from repro_torch.ml.clustream import CluStream, CluStreamConfig
+
+    cc = CluStreamConfig(n_dims=d, n_micro=K, n_macro=8, period=CS_PERIOD,
+                         macro_impl=mode)
+    xs = torch.from_numpy(blob_stream(d, n_chunks * CS_CHUNK))
+    stream = ChunkedStream({"x": xs}, CS_CHUNK, device=dev)
+    what = f"clustream {arm} {mode}"
+    learner = CluStream(cc, device=dev)
+    loc = LocalEngine()
+    # the evaluation's key: PRNGKey(0), split over the topology's processors
+    init = loc.init(learner, PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    states, eager = loc.run_stream(learner, init, stream)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    count = launches()
+    # the wide form's launches (the x | x^2 CF scatter), within segment_sum's
+    count["segment_sum_wide"] = segment_sum.wide_launches
+    eager = stack_outputs(eager)["metrics"]
+    n_batches = n_chunks * CS_CHUNK
+    chunks_seen = []
+    res = ChunkedPrequentialEvaluation(
+        CluStream(cc, device=dev), stream,
+        on_chunk=lambda outs, chunk, carry: chunks_seen.append(
+            outs["metrics"])).run()
+    compiled = {k: torch.cat([m[k] for m in chunks_seen]) for k in eager}
+    with plain_kernels():
+        reset_launches()
+        plain_states, plain = loc.run_stream(learner, init, stream)
+        require(sum(launches().values()) == 0, "plain run launched a kernel")
+    plain = stack_outputs(plain)["metrics"]
+    for k in ("seen", "ssq", "n_active"):
+        for other, name in ((compiled, "compiled"), (plain, "plain")):
+            require(torch.equal(other[k].view(torch.int32),
+                                eager[k].view(torch.int32)),
+                    f"{what}: per-batch {k} of the {name} run differs from "
+                    "the eager run's")
+    require(same_state(res.extra["carry"]["states"], states),
+            f"{what}: the compiled run's final state differs from the eager "
+            "run's")
+    require(same_state(plain_states, states),
+            f"{what}: the plain run's final state differs from the eager "
+            "run's")
+    st = states["clustream"]
+    require(count["segment_sum"] >= 2 * n_batches
+            and count["segment_sum_wide"] == n_batches,
+            f"{what}: the CF scatter did not launch segment_sum, its wide "
+            f"form once a step ({count})")
+    require(float(st["macro_t"]) > 0, f"{what}: the macro phase never ran")
+    ssq = eager["ssq"].double()
+    require(bool(torch.isfinite(ssq).all()) and bool((ssq >= 0).all()),
+            f"{what}: ssq not finite and non-negative")
+    mass = float(st["n"].sum()) / (n_batches * B)
+    us_eager = 1e6 * eager_s / n_batches
+    us_c = 1e6 * B / res.throughput
+    log(f"{what} B={B} x {n_batches} ({n_chunks} chunks of {CS_CHUNK}): "
+        f"{us_eager:.1f} us/batch eager, {us_c:.1f} compiled; last ssq/B "
+        f"{float(ssq[-1]) / B:.5f}, active micro-clusters "
+        f"{int(eager['n_active'][-1])}, CF mass {mass:.3f} of the instances, "
+        f"macro_t {float(st['macro_t']):.0f}; "
+        f"launches {count}; eager, compiled and plain bit for bit alike "
+        f"on {smi}")
+    return {"us_per_batch": us_eager, "compiled_us_per_batch": us_c,
+            "launches": count, "last_ssq": float(ssq[-1]), "cf_mass": mass,
+            "macro_t": float(st["macro_t"])}, states, stream, cc
+
+
+def clustream_kill_resume(cc, stream, want_states, dev):
+    """The compiled run through ChunkedPrequentialEvaluation with a
+    checkpoint every CS_CHUNKS // 6 chunks (asynchronous writer), killed
+    after the middle checkpoint (the later ones gone), resumed: the same
+    final state as the eager run, bit for bit, back on the card."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.evaluation import ChunkedPrequentialEvaluation
+    from repro_torch.ml.clustream import CluStream
+
+    ckpt = ROOT / "build" / "clustream_checkpoints"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    every = max(1, stream.n_chunks // 6)
+    t0 = time.perf_counter()
+    full = ChunkedPrequentialEvaluation(
+        CluStream(cc, device=dev), stream,
+        checkpoint=CheckpointManager(ckpt, keep=0),
+        checkpoint_every=every).run(resume=False)
+    mgr = CheckpointManager(ckpt, keep=0)
+    steps = mgr.all_steps()
+    kill = steps[len(steps) // 2]
+    for s in steps:
+        if s > kill:
+            shutil.rmtree(ckpt / f"step_{s:010d}")
+    ev = ChunkedPrequentialEvaluation(CluStream(cc, device=dev), stream,
+                                      checkpoint=mgr, checkpoint_every=every)
+    got = ev.run(resume=True)
+    require(ev.report["events"] == [("resume", kill)],
+            f"kill/resume: resumed at {ev.report['events']}, not {kill}")
+    require(got.curve == full.curve and got.extra["seen"] == full.extra["seen"],
+            "kill/resume: the curve differs from the uninterrupted run's")
+    require(same_state(got.extra["carry"]["states"], want_states),
+            "kill/resume: the final state differs from the uninterrupted "
+            "run's")
+    require(got.extra["carry"]["states"]["clustream"]["n"].device.type
+            == dev.type, "kill/resume: the carry did not come back to the "
+            "card")
+    total = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"clustream kill/resume ({cc.macro_impl}): checkpoints after chunks "
+        f"{[s - 1 for s in steps]}, killed after chunk {kill - 1}, resumed "
+        f"for {got.extra['chunks']} chunks: final state bit for bit the "
+        f"uninterrupted run's ({total:.1f} s for both runs)")
+    return {"checkpoints": steps, "resumed_at": kill,
+            "resumed_chunks": got.extra["chunks"]}
+
+
+def phase_clustream(dev, smi):
+    """CluStream on the chunked runtime (paper section 5) at the widest arm
+    of benchmarks/clustream_benchmarks.py, d128-K256 (the main path, step
+    mode), and d32-K100: CluStreamConfig(n_macro=8, period=4096), B = 512,
+    200 batches in chunks of 8 (4096 instances: the period is aligned, so
+    boundary mode fires where step mode does).  Each arm in step and
+    boundary mode, eager, compiled and plain bit for bit alike; boundary
+    mode's final state equal to step mode's; a kill and resume on the
+    main arm; the wide segment_sum on the main path's inputs; syncs per
+    captured step, and the device busy share eager against compiled."""
+    import torch
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.core.pytree import tree_clone
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.ml.clustream import CluStream
+
+    t0 = time.perf_counter()
+    out = {}
+    main = None
+    for arm, d, K in (("d128-K256", 128, 256), ("d32-K100", 32, 100)):
+        finals = {}
+        for mode in ("step", "boundary"):
+            e, states, stream, cc = run_clustream(arm, d, K, mode, CS_CHUNKS,
+                                                  dev, smi)
+            out[f"{arm} {mode}"] = e
+            finals[mode] = states
+            if arm == "d128-K256" and mode == "step":
+                main = (e, states, stream, cc)
+            if arm == "d128-K256" and mode == "boundary":
+                out["kill_resume"] = clustream_kill_resume(cc, stream, states,
+                                                           dev)
+        require(same_state(finals["step"], finals["boundary"]),
+                f"clustream {arm}: boundary mode's final state differs from "
+                "step mode's (period aligned to the chunk)")
+        log(f"clustream {arm}: boundary mode's final state bit for bit step "
+            "mode's")
+
+    e, states, stream, cc = main
+    st = states["clustream"]
+    it = iter(stream.starting_at(CS_CHUNKS - 1))
+    chunk = next(it)
+    it.close()
+    xs = [chunk.payload["x"][i] for i in range(CS_CHUNK)]
+    e["kernels"] = kernel_cf_scatter(st, xs[-1], cc, smi)
+    learner = CluStream(cc, device=dev)
+    syncs = count_syncs(XStep(learner.step), tree_clone(st),
+                        [(x, None) for x in xs])
+    prof = profile_steps(XStep(learner.step), tree_clone(st),
+                         [(x, None) for x in xs * 4])
+    reset_launches()
+    captured = compile_step(learner.step, tree_clone(st), xs[0])
+    at_capture = {k: v for k, v in launches().items() if v}
+    state = tree_clone(st)
+    with no_syncs():
+        for x in xs:
+            state, _ = captured(state, x)
+    graph_syncs = count_syncs(XStep(captured), state, [(x, None) for x in xs])
+    require(graph_syncs == 0, f"clustream compiled: {graph_syncs} syncs per "
+            "replay")
+    gprof = profile_steps(XStep(captured), state, [(x, None) for x in xs * 4])
+    graph = {"syncs_per_step": graph_syncs, "profile": gprof,
+             "wrapper_calls_at_capture": at_capture}
+    compare_paths("clustream main path d128-K256 step",
+                  (e["us_per_batch"], syncs, prof),
+                  (e["compiled_us_per_batch"], graph), smi)
+    e.update(syncs_per_step=syncs, profile=prof, compiled=graph)
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"clustream phase: {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def kernel_selective_scan(dev):
     """selective_scan at falcon_mamba_7b's prefill shape (B = 4, S = 2048,
     dI = 8192, N = 16, float32; tests/test_kernels.py's input scales)
@@ -1894,6 +2221,7 @@ def main():
     paths = phase_paths(dev)
     rules = phase_rules(dev, smi)
     ens = phase_ensembles(dev, smi)
+    cs = phase_clustream(dev, smi)
     lm = phase_lm(dev, smi)
 
     names = ("tree_route", "vht_stats", "split_gain", "rule_stats",
@@ -1923,11 +2251,24 @@ def main():
                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                      "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+    # the rule_stats kernel as segment_sum, on the CluStream main path: its
+    # wide form's CF scatter x | x^2 [257, 1, 1, 256] (launches: the eager
+    # d128-K256 step-mode run's launches of the wide form, one a step)
+    cs_main = cs["d128-K256 step"]
+    e = cs_main["kernels"]["x|x^2"]
+    rows.append({"name": "segment_sum", "route": "cuda",
+                 "source": "src/repro_torch/csrc/rule_stats.cu",
+                 "replaces": replaces["rule_stats"],
+                 "launches": cs_main["launches"]["segment_sum_wide"],
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                 "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
     log(f"split_gain full fallback [{N_NODES},{M_ATTRS},{BINS},{C}]: "
         f"{json.dumps(kern['split_gain_full'])}")
     log(f"paths: {json.dumps(paths)}")
     log(f"rules: {json.dumps(rules)}")
     log(f"ensembles: {json.dumps(ens)}")
+    log(f"clustream: {json.dumps(cs)}")
     log(f"lm: {json.dumps(lm)}")
     log(f"ptxas: {json.dumps(ptxas)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

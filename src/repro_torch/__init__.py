@@ -10,7 +10,11 @@ kernel), the OzaBag/OzaBoost ensembles and ``ShardingEnsemble``
 (``ml.ensemble``, ``ml.vht``, ``core.prng``; the ``split_poisson``
 kernel), the LM zoo's serving path for the dense and ssm families
 (``configs``, ``models``, ``launch``; the ``selective_scan`` and
-``flash_attention`` kernels), and compiled steps (``core.compiled``).  Entry points take
+``flash_attention`` kernels), compiled steps (``core.compiled``), and
+CluStream clustering (``ml.clustream``; its CF scatter through the
+``rule_stats`` kernel) on the chunked stream runtime (``ChunkedStream``,
+``JitEngine.run_stream_chunked``, ``ChunkedPrequentialEvaluation``) with
+mid-stream checkpoints (``checkpoint``).  Entry points take
 ``device=None``, which means the CUDA card (see ``device.resolve_device``).
 """
 

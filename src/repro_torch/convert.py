@@ -4,7 +4,12 @@ arrays.
 ``state_from_numpy`` turns a learner or topology carry of the JAX package,
 read out as numpy (``jax.tree.map(np.asarray, state)``), into the port's
 tensors; ``state_to_numpy`` goes the other way.  ``params_from_numpy`` turns
-an LM's parameter or cache tree into the port's, split per layer.  Dtypes
+an LM's parameter or cache tree into the port's, split per layer;
+``accumulator_from_numpy`` a ``MetricAccumulator`` state (float64, the one
+tree here that holds 64-bit arrays) into the port's accumulator.  A
+CluStream state and a chunked carry (``{"states": ..., "feedback": ...}``,
+the feedback ``None`` before the first step) go through
+``state_from_numpy`` like any learner state.  Dtypes
 are kept: f32 stays float32, i32 stays int32, bool stays bool and bf16
 stays bfloat16, and a uint32 PRNG key (the ensembles') stays uint32.
 64-bit arrays are refused, because numpy makes them by default and no
@@ -69,3 +74,13 @@ def params_from_numpy(tree, cfg, device=None):
                    for i in range(n)]
         out[key] = sub
     return out
+
+
+def accumulator_from_numpy(state):
+    """A ``MetricAccumulator.state()`` of the JAX package (float64 numpy
+    arrays: correct, abs_err, seen, curve) -> the port's accumulator,
+    holding the same numbers."""
+    from repro_torch.core.evaluation import MetricAccumulator
+    return MetricAccumulator().load(
+        {k: np.asarray(state[k], np.float64)
+         for k in ("correct", "abs_err", "seen", "curve")})

@@ -295,7 +295,12 @@ class _Graph:
                 step.fn(tree_clone(step.state), *self.payload)
             main.wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):
+            # thread_local: what other threads call meanwhile (a chunked
+            # stream's producer staging the next chunk: pinned memory, a
+            # copy on its own stream) does not invalidate this capture;
+            # a sync in this thread still does
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 new, self.out = step.fn(step.state, *self.payload)
                 step.copy_back(new)
         weakref.finalize(self, _release, self.graph, device,

@@ -21,6 +21,13 @@ on each:
 Each accepts a Topology or a bare learner (``init``/``step``), which is
 wrapped in a one-processor topology.  ``run_stream`` clones the states it
 is given first, because processors update large tensors in place.
+
+The chunked stream runtime: ``JitEngine.run_stream_chunked`` drives the
+same steps chunk by chunk from a ``data.pipeline.ChunkedStream`` and fires
+the processors' ``boundary`` hooks between chunks (one compiled boundary
+step); ``LocalEngine.run_stream`` takes a ``ChunkedStream`` too, as the
+eager oracle.  Every other driver refuses a topology with boundary hooks,
+which it would never fire.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.compiled import compile_step
 from repro_torch.core.pytree import tree_clone, tree_leaves, tree_map
 from repro_torch.core.topology import Topology, build_learner_topology
+from repro_torch.data.pipeline import ChunkedStream
 
 
 def _as_topology(topology) -> Topology:
@@ -41,7 +50,13 @@ def _as_topology(topology) -> Topology:
 
 
 def _init_states(topology: Topology, key):
-    return {n: p.init_state(key) for n, p in topology.processors.items()}
+    """Each processor's state from its own key, ``split(key, n)[i]`` as the
+    JAX package gives them, or from ``None`` (its default) for none."""
+    procs = topology.processors.items()
+    if key is None:
+        return {n: p.init_state(None) for n, p in procs}
+    keys = prng.split(key, len(topology.processors))
+    return {n: p.init_state(k) for (n, p), k in zip(procs, keys)}
 
 
 def _unstack_payloads(payloads):
@@ -56,14 +71,53 @@ def _unstack_payloads(payloads):
 
 
 def _require_no_boundaries(topology: Topology):
-    """Chunk-boundary hooks fire only on a chunked driver, which the port
-    does not have yet: fail loudly instead of never firing them."""
+    """A topology with chunk-boundary hooks on a driver that is not chunked
+    would never fire them (boundary-mode CluStream's macro centroids would
+    stay at init): fail loudly instead."""
     names = [n for n, p in topology.processors.items()
              if p.boundary is not None]
     if names:
         raise ValueError(
-            f"processors {names} have chunk-boundary hooks, which only fire "
-            "on a chunked driver; repro_torch has none yet")
+            f"processors {names} have chunk-boundary hooks, which only "
+            "fire on the chunked driver: pass a ChunkedStream or "
+            "chunk_len= to run_stream (or use a boundary-free config, "
+            "e.g. CluStream macro_impl='step')")
+
+
+def _boundary_hooks(topology: Topology) -> dict:
+    return {n: p.boundary for n, p in topology.processors.items()
+            if p.boundary is not None}
+
+
+def _apply_boundaries(hooks: dict, states):
+    """Each processor's ``boundary`` hook applied to its state."""
+    states = dict(states)
+    for name, hook in hooks.items():
+        states[name] = hook(states[name])
+    return states
+
+
+def _close_iter(it):
+    """Stop a chunk iterator now (its producer thread with it), not when
+    it is collected."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+
+
+def _concat_outputs(segments):
+    """Per-chunk outputs, each stacked on a leading step axis, as one."""
+    if not segments:
+        return {}
+    if len(segments) == 1:
+        return segments[0]
+    return tree_map(lambda *xs: torch.cat(xs, 0), *segments)
+
+
+def _live_steps(chunk):
+    """The chunk's real (un-padded) steps, one payload each."""
+    return [tree_map(lambda x: x[i], chunk.payload)
+            for i in range(chunk.length)]
 
 
 class LocalEngine:
@@ -82,11 +136,27 @@ class LocalEngine:
     def run_stream(self, topology, states, payloads):
         """Eager per-step loop.  Returns (states, list of per-step
         outputs); ``repro_torch.core.evaluation.stack_outputs`` stacks the
-        list.  ``states`` is cloned first and left as it was."""
+        list.  ``states`` is cloned first and left as it was.
+
+        A ``ChunkedStream`` is taken too: its real steps run eagerly and
+        the processors' ``boundary`` hooks fire between chunks, the eager
+        oracle of the chunked driver."""
         topology = _as_topology(topology)
-        _require_no_boundaries(topology)
         states = tree_clone(states)
         outs = []
+        if isinstance(payloads, ChunkedStream):
+            hooks = _boundary_hooks(topology)
+            it = iter(payloads)
+            try:
+                for chunk in it:
+                    for payload in _live_steps(chunk):
+                        states, out = self.step(topology, states, payload)
+                        outs.append(out)
+                    states = _apply_boundaries(hooks, states)
+            finally:
+                _close_iter(it)
+            return states, outs
+        _require_no_boundaries(topology)
         for payload in _unstack_payloads(payloads):
             states, out = self.step(topology, states, payload)
             outs.append(out)
@@ -184,24 +254,33 @@ class StreamEngine:
 
 
 class JitEngine:
-    """The JAX package's ``JitEngine`` (``step`` and the monolithic
-    ``run_stream``): the whole topology step with feedback edges delivered
-    next step.  The first step, with no feedback yet, runs eagerly and
-    primes the carry, as the JAX engine's ``_prime_first_step`` runs it
-    through its plain jitted step.  Every later step replays one captured
-    topology step (``core.compiled.compile_step``, captured at the first of
-    them and kept per topology), whose gates are conds on the device; on
-    the CPU that step runs eagerly in its capturable form.
+    """The JAX package's ``JitEngine``: the whole topology step with
+    feedback edges delivered next step.  The first step, with no feedback
+    yet, runs eagerly and primes the carry, as the JAX engine's
+    ``_prime_first_step`` runs it through its plain jitted step.  Every
+    later step replays one captured topology step (``core.compiled.
+    compile_step``, captured at the first of them and kept per topology),
+    whose gates are conds on the device; on the CPU that step runs eagerly
+    in its capturable form.
 
     ``step`` returns the captured step's own carry, which the next step of
     the same topology advances in place (what ``donate_argnums`` does in
-    the JAX engine); ``run_stream`` returns a copy."""
+    the JAX engine); ``run_stream`` and ``run_stream_chunked`` return a
+    copy.
+
+    The chunked runtime (``run_stream_chunked``, or ``run_stream`` given a
+    ``ChunkedStream`` or ``chunk_len``): a chunk is its real steps, each a
+    replay of the captured step (a padded tail chunk replays only its real
+    steps, as JAX's masked scan makes its padded steps no-ops), then, where
+    a processor has a ``boundary`` hook, one replay of the compiled
+    boundary step (captured at the first boundary, kept per topology)."""
 
     def __init__(self):
         self._eager = StreamEngine()
         # id -> (the object, so the id stays its own, and what it maps to)
         self._topologies: dict[int, tuple] = {}
         self._compiled: dict[int, tuple] = {}
+        self._boundaries: dict[int, tuple] = {}
 
     def _topology(self, topology) -> Topology:
         if isinstance(topology, Topology):
@@ -226,19 +305,43 @@ class JitEngine:
             self._compiled[id(topology)] = entry
         return entry[1](carry, source_payload)
 
+    def _boundary(self, topology, carry):
+        """The processors' ``boundary`` hooks on ``carry``, as one compiled
+        step; the carry as it is when no processor has one."""
+        hooks = _boundary_hooks(topology)
+        if not hooks:
+            return carry
+        entry = self._boundaries.get(id(topology))
+        if entry is None:
+            entry = (topology, compile_step(lambda c: (
+                {"states": _apply_boundaries(hooks, c["states"]),
+                 "feedback": c["feedback"]}, {}), carry))
+            self._boundaries[id(topology)] = entry
+        return entry[1](carry)[0]
+
     def run_stream(self, topology, carry, payloads, *, chunk_len=None,
                    on_chunk=None, collect_outputs: bool = True):
         """Every micro-batch of ``payloads`` (a list of per-step payloads,
         or a dict stacked on a leading step axis).  Returns (carry, outputs
         stacked on the leading axis), as the JAX ``JitEngine.run_stream``
-        does; ``carry`` is cloned first and left as it was.  The chunked
-        runtime's knobs (``chunk_len``, ``on_chunk``, ``collect_outputs``)
-        are not ported yet and raise."""
-        if chunk_len is not None or on_chunk is not None or not collect_outputs:
-            raise NotImplementedError(
-                "chunk_len, on_chunk and collect_outputs belong to the "
-                "chunked runtime (ChunkedStream, run_stream_chunked), which "
-                "repro_torch does not have yet")
+        does; ``carry`` is cloned first and left as it was.
+
+        A ``ChunkedStream``, or ``chunk_len`` (which cuts the payloads into
+        one, where they lie), goes through ``run_stream_chunked`` with
+        ``on_chunk`` and ``collect_outputs``; without either, those two
+        knobs raise rather than being ignored."""
+        if chunk_len is not None and not isinstance(payloads, ChunkedStream):
+            payloads = ChunkedStream(payloads, chunk_len, to_device=False)
+        if isinstance(payloads, ChunkedStream):
+            return self.run_stream_chunked(
+                topology, carry, payloads, on_chunk=on_chunk,
+                collect_outputs=collect_outputs)
+        if on_chunk is not None or not collect_outputs:
+            raise ValueError(
+                "on_chunk / collect_outputs are chunked-runtime knobs: "
+                "pass a ChunkedStream or chunk_len, or drop them -- the "
+                "monolithic run would ignore the reduction and keep the "
+                "full [T, ...] outputs")
         topology = self._topology(topology)
         _require_no_boundaries(topology)
         carry = tree_clone(carry)
@@ -250,3 +353,43 @@ class JitEngine:
         if not outs:
             return carry, {}
         return carry, tree_map(lambda *xs: torch.stack(xs), *outs)
+
+    def run_stream_chunked(self, topology, carry, chunks, *, on_chunk=None,
+                           collect_outputs: bool = True,
+                           reduce_outputs=None):
+        """The chunked stream runtime: the stream's steps chunk by chunk,
+        bit for bit the monolithic ``run_stream`` (the same eager first
+        step and captured steps) with the ``boundary`` hooks between
+        chunks.  ``chunks`` is a ``ChunkedStream`` or any iterable of
+        ``Chunk``s.  After each chunk (and its boundary) the driver calls
+        ``on_chunk(outputs, chunk, carry)``, the chunk's outputs stacked
+        on a leading step axis, its padding dropped; ``carry`` there is the
+        engine's own, which the next chunk advances.
+        ``collect_outputs=False`` keeps no outputs (returns None for them)
+        instead of concatenating a ``[T, ...]`` result.  ``reduce_outputs``
+        maps a step's outputs to what is kept of them (a selection, such
+        as only the metrics), applied step by step.  ``carry`` is cloned
+        first and left as it was; returns (a copy of the final carry,
+        outputs)."""
+        topology = self._topology(topology)
+        carry = tree_clone(carry)
+        segments = []
+        it = iter(chunks)
+        try:
+            for chunk in it:
+                outs = []
+                for payload in _live_steps(chunk):
+                    carry, out = self.step(topology, carry, payload)
+                    if reduce_outputs is not None:
+                        out = reduce_outputs(out)
+                    outs.append(tree_clone(out))
+                carry = self._boundary(topology, carry)
+                seg = tree_map(lambda *xs: torch.stack(xs), *outs)
+                if on_chunk is not None:
+                    on_chunk(seg, chunk, carry)
+                if collect_outputs:
+                    segments.append(seg)
+        finally:
+            _close_iter(it)
+        carry = tree_clone(carry)
+        return carry, _concat_outputs(segments) if collect_outputs else None

@@ -48,8 +48,9 @@ class Processor:
     name: str = "processor"
 
     # Optional chunk-boundary hook: ``boundary(state) -> state``, run between
-    # chunks by a chunked driver.  The port has no chunked driver yet, so
-    # the engines refuse a topology that sets one.
+    # chunks by the chunked driver (``JitEngine.run_stream_chunked``,
+    # ``LocalEngine.run_stream`` of a ChunkedStream); the drivers that are
+    # not chunked refuse a topology that sets one.
     boundary: Callable | None = None
 
     def init_state(self, key):  # pragma: no cover - interface

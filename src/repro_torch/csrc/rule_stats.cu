@@ -6,7 +6,12 @@
 // where instances with seg_i outside [0, R) and bins outside [0, bins) are
 // dropped (AMRules passes seg = R, one past the last row, to discard).  The
 // same kernel sums AMRules' float reductions (the wrapper's segment_sum:
-// m = 1, bins = 1, the rule or the XLA window as the row).
+// m = 1, bins = 1, the rule or the XLA window as the row) and CluStream's
+// CF scatter (m = 1, bins = 1, K + 1 segments, K the discard; the 2d
+// columns of x | x^2 in one launch, the 3 of 1 | t | t^2 in another).  Up
+// to 8 columns (C) a thread keeps its cell's C sums in registers; 9 to
+// MAX_WIDE = 4096 columns take the wide form (rule_stats_wide_kernel,
+// below), a thread per (cell, column).  Both add in instance order.
 //
 // Replaces src/repro/kernels/rule_stats/kernel.py::rule_stats_pallas
 // (kernel.py:57, its pallas_call at :71), which wrote the scatter as a
@@ -74,6 +79,8 @@ constexpr int CELLS = THREADS;          // cells per block, one per thread
 constexpr int TILE = 512;               // instances staged per pass
 constexpr int KEY_BITS = 8;             // a local cell is < CELLS = 2^8
 constexpr int SMALL = 64;               // a batch every cell reads whole
+constexpr int WIDE_COLS = 32;           // columns a block of the wide form takes
+constexpr int MAX_WIDE = 4096;          // columns the wide form takes
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -128,6 +135,76 @@ __device__ __forceinline__ void walk(float (&acc)[C], const int* list, int n,
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], src[c]);
   }
+}
+
+// steps 2 and 3 for a staged tile of n instances (s_seg; s_ent holding
+// their xbin column): the lists of the block's cells [c0, c0 + cr), each
+// in instance order, one after the other in s_sorted.  s_wcnt must be 0.
+// Returns the list of cell c0 + threadIdx.x as (start, count).
+__device__ __forceinline__ int2 sort_tile(int n, int R, int bins, int c0,
+                                          int cr, const int* s_seg,
+                                          int* s_ent, int* s_sorted,
+                                          int (*s_wcnt)[CELLS], int* s_wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // 2. each instance's local cell and its rank in it, warp by warp in
+  // instance order; -1 when it is dropped or another block's
+  const int per_warp = (n + 32 * WARPS - 1) / (32 * WARPS) * 32;
+  const int i_lo = warp * per_warp, i_hi = min(n, i_lo + per_warp);
+  for (int i0 = i_lo; i0 < i_hi; i0 += 32) {
+    const int i = i0 + lane;
+    int key = -1;
+    if (i < i_hi) {
+      const int s = s_seg[i], xb = s_ent[i];
+      if (s >= 0 && s < R && xb >= 0 && xb < bins) {
+        const int cell = s * bins + xb - c0;
+        if (cell >= 0 && cell < cr) key = cell;
+      }
+    }
+    const unsigned same = __match_any_sync(0xffffffffu, key);
+    const unsigned before = same & ((1u << lane) - 1u);
+    int packed = -1;
+    if (key >= 0)
+      packed = ((s_wcnt[warp][key] + __popc(before)) << KEY_BITS) | key;
+    __syncwarp();
+    if (key >= 0 && before == 0) s_wcnt[warp][key] += __popc(same);
+    if (i < i_hi) s_ent[i] = packed;
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // 3. each cell's count, and its list's start: the cells' counts
+  // scanned; then each warp's place in each list, its start plus the
+  // earlier warps' counts of the cell
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) count += s_wcnt[w][tid];
+  int incl = count;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) s_wsum[warp] = incl;
+  __syncthreads();
+  int start = incl - count;
+  for (int w = 0; w < warp; ++w) start += s_wsum[w];
+  int place = start;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int v = s_wcnt[w][tid];
+    s_wcnt[w][tid] = place;
+    place += v;
+  }
+  __syncthreads();
+  // each warp puts its own run of instances in place
+  for (int i = i_lo + lane; i < i_hi; i += 32) {
+    const int p = s_ent[i];
+    if (p >= 0)
+      s_sorted[s_wcnt[warp][p & ((1 << KEY_BITS) - 1)] + (p >> KEY_BITS)] =
+          i;
+  }
+  __syncthreads();
+  return make_int2(start, count);
 }
 
 // blockIdx.y: the attribute j; blockIdx.x: its cells [c0, c0 + cr)
@@ -194,72 +271,134 @@ rule_stats_kernel(float* __restrict__ stats, const int* __restrict__ seg,
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
 
-    // 2. each instance's local cell and its rank in it, warp by warp in
-    // instance order; -1 when it is dropped or another block's
-    const int per_warp = (n + 32 * WARPS - 1) / (32 * WARPS) * 32;
-    const int i_lo = warp * per_warp, i_hi = min(n, i_lo + per_warp);
-    for (int i0 = i_lo; i0 < i_hi; i0 += 32) {
-      const int i = i0 + lane;
-      int key = -1;
-      if (i < i_hi) {
-        const int s = s_seg[i], xb = s_ent[i];
-        if (s >= 0 && s < R && xb >= 0 && xb < bins) {
-          const int cell = s * bins + xb - c0;
-          if (cell >= 0 && cell < cr) key = cell;
-        }
-      }
-      const unsigned same = __match_any_sync(0xffffffffu, key);
-      const unsigned before = same & ((1u << lane) - 1u);
-      int packed = -1;
-      if (key >= 0)
-        packed = ((s_wcnt[warp][key] + __popc(before)) << KEY_BITS) | key;
-      __syncwarp();
-      if (key >= 0 && before == 0) s_wcnt[warp][key] += __popc(same);
-      if (i < i_hi) s_ent[i] = packed;
-      __syncwarp();
-    }
-    __syncthreads();
-
-    // 3. each cell's count, and its list's start: the cells' counts
-    // scanned; then each warp's place in each list, its start plus the
-    // earlier warps' counts of the cell
-    int count = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) count += s_wcnt[w][tid];
-    int incl = count;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    if (lane == 31) s_wsum[warp] = incl;
-    __syncthreads();
-    int start = incl - count;
-    for (int w = 0; w < warp; ++w) start += s_wsum[w];
-    int place = start;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const int v = s_wcnt[w][tid];
-      s_wcnt[w][tid] = place;
-      place += v;
-    }
-    __syncthreads();
-    // each warp puts its own run of instances in place
-    for (int i = i_lo + lane; i < i_hi; i += 32) {
-      const int p = s_ent[i];
-      if (p >= 0)
-        s_sorted[s_wcnt[warp][p & ((1 << KEY_BITS) - 1)] + (p >> KEY_BITS)] =
-            i;
-    }
-    __syncthreads();
+    const int2 list = sort_tile(n, R, bins, c0, cr, s_seg, s_ent, s_sorted,
+                                s_wcnt, s_wsum);
 
     // 4. each cell's thread adds its own list, in instance order
-    if (mine) walk<C>(acc, s_sorted + start, count, s_mom);
+    if (mine) walk<C>(acc, s_sorted + list.x, list.y, s_mom);
     if (base + TILE < B) __syncthreads();   // the buffers are staged again
   }
   if (mine) {
 #pragma unroll
     for (int c = 0; c < C; ++c) out[c] = acc[c];
+  }
+}
+
+// The wide form, for C > 8 columns (CluStream's CF scatter: x and x^2 of
+// [B, d], 2d columns): blockIdx.z takes WIDE_COLS of the columns.  A
+// thread per (cell, column) pair, not per cell, since C sums do not fit a
+// thread's registers; each pair starts from its old value and adds its
+// cell's instances in instance order, as the narrow form does, so it
+// gives the same bits.  A tile is sorted as above (each column block
+// sorts it again: the sort is a few warp steps, the columns' reads are
+// the work), and mom is read from device memory, not staged: a tile of
+// 512 rows of 256 columns is 512 KB.  Consecutive threads take
+// consecutive columns of one cell, so a warp reads 128 contiguous bytes
+// of a row.  Each pair reads and writes its sum in stats once a tile in
+// which its cell has instances, so the tiles add in order.
+//
+// What bounds it: CluStream's CF scatter at d128-K256 ([257, 1, 1, 256],
+// B = 512) reads 0.53 MB of rows and reads and writes 0.53 MB of sums,
+// 0.3 us at 3.35 TB/s; its adds are nothing.  The kernel is bound by the
+// chains of dependent reads and adds of the busiest segments (a blob
+// stream puts some hundred rows in one), a read from L2 each, eight in
+// flight, and by a block's cells taken a warp's worth at a time.  Blocks
+// of 32 columns (16 blocks) rather than 64 (8) halve the cells a warp
+// walks one after another: 0.0144 against 0.0193 ms on a batch spread
+// as a blob stream spreads it; 16 columns (32 blocks, each sorting the
+// batch again) took 0.0142 (tools/kernel_ab.py's CF scatter cases, on an
+// NVIDIA H100 80GB HBM3 at 700 W).  All the rows in one segment take
+// 0.045 ms whatever the blocks: a chain of 512 adds, each waiting on its
+// read.
+template <bool SMALL_BATCH>
+__device__ __forceinline__ void wide_pairs(float* __restrict__ stats,
+                                           const float* __restrict__ mom,
+                                           int m, int j, int bins, int C,
+                                           int c0, int ncell, int col0,
+                                           int ncols, const int* seg,
+                                           const int* xj, int R, int B,
+                                           const int* s_sorted,
+                                           const int* s_start,
+                                           const int* s_count, int base) {
+  for (int p = threadIdx.x; p < ncell * ncols; p += THREADS) {
+    const int local = p / ncols, col = col0 + p - local * ncols;
+    const int cell = c0 + local;
+    const int r = cell / bins, b = cell - r * bins;
+    float* out = stats + (((size_t)r * m + j) * bins + b) * C + col;
+    if (SMALL_BATCH) {
+      float acc = *out;
+      for (int i = 0; i < B; ++i) {
+        const int s = seg[i], xb = xj[(size_t)i * m];
+        const bool hit = s >= 0 && s < R && xb >= 0 && xb < bins &&
+                         s * bins + xb == cell;
+        const float v = mom[(size_t)i * C + col];
+        if (hit) acc = __fadd_rn(acc, v);
+      }
+      *out = acc;
+    } else {
+      const int n = s_count[local];
+      if (n == 0) continue;
+      const int* list = s_sorted + s_start[local];
+      const float* column = mom + (size_t)base * C + col;
+      float acc = *out;
+      // eight rows read ahead of their adds, as walk() does
+      int q = 0;
+      for (; q + 8 <= n; q += 8) {
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = column[(size_t)list[q + k] * C];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc = __fadd_rn(acc, v[k]);
+      }
+      for (; q < n; ++q) acc = __fadd_rn(acc, column[(size_t)list[q] * C]);
+      *out = acc;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+rule_stats_wide_kernel(float* __restrict__ stats, const int* __restrict__ seg,
+                       const int* __restrict__ xbin,
+                       const float* __restrict__ mom, int R, int m, int bins,
+                       int C, int B, int cr) {
+  __shared__ __align__(16) int s_seg[TILE];
+  __shared__ __align__(16) int s_ent[TILE];     // xbin, then (rank, cell)
+  __shared__ int s_sorted[TILE];                // tile instances, by cell
+  __shared__ int s_wcnt[WARPS][CELLS];          // per warp and cell
+  __shared__ int s_wsum[WARPS];
+  __shared__ int s_start[CELLS], s_count[CELLS];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = blockIdx.y;
+  const int c0 = blockIdx.x * cr;
+  const int ncell = min(cr, R * bins - c0);
+  const int col0 = blockIdx.z * WIDE_COLS;
+  const int ncols = min(WIDE_COLS, C - col0);
+  const int* xj = xbin + j;
+
+  if (B <= SMALL) {
+    wide_pairs<true>(stats, mom, m, j, bins, C, c0, ncell, col0, ncols, seg,
+                     xj, R, B, nullptr, nullptr, nullptr, 0);
+    return;
+  }
+  for (int base = 0; base < B; base += TILE) {
+    const int n = min(TILE, B - base);
+    stage_words(s_seg, seg + base, n);
+    for (int i = tid; i < n; i += THREADS)
+      cp_async4(&s_ent[i], xj + (size_t)(base + i) * m);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int k = lane; k < CELLS; k += 32) s_wcnt[warp][k] = 0;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    const int2 list = sort_tile(n, R, bins, c0, cr, s_seg, s_ent, s_sorted,
+                                s_wcnt, s_wsum);
+    s_start[tid] = list.x;
+    s_count[tid] = list.y;
+    __syncthreads();
+    wide_pairs<false>(stats, mom, m, j, bins, C, c0, ncell, col0, ncols, seg,
+                      xj, R, B, s_sorted, s_start, s_count, base);
+    if (base + TILE < B) __syncthreads();   // the buffers are staged again
   }
 }
 
@@ -274,6 +413,18 @@ void launch(float* stats, const int* seg, const int* xbin, const float* mom,
   const dim3 grid((unsigned)ranges, (unsigned)m);
   rule_stats_kernel<C><<<grid, THREADS, 0, stream>>>(stats, seg, xbin, mom, R,
                                                      m, bins, B, cr);
+}
+
+void launch_wide(float* stats, const int* seg, const int* xbin,
+                 const float* mom, int R, int m, int bins, int C, int B,
+                 cudaStream_t stream) {
+  const int per_attr = R * bins;
+  const int ranges = (per_attr + CELLS - 1) / CELLS;
+  const int cr = (per_attr + ranges - 1) / ranges;
+  const dim3 grid((unsigned)ranges, (unsigned)m,
+                  (unsigned)((C + WIDE_COLS - 1) / WIDE_COLS));
+  rule_stats_wide_kernel<<<grid, THREADS, 0, stream>>>(stats, seg, xbin, mom,
+                                                       R, m, bins, C, B, cr);
 }
 
 }  // namespace
@@ -295,7 +446,9 @@ extern "C" int rule_stats_launch(void* stats, const void* seg,
     case 6: launch<6>(s, sg, xb, mo, R, m, bins, B, st); break;
     case 7: launch<7>(s, sg, xb, mo, R, m, bins, B, st); break;
     case 8: launch<8>(s, sg, xb, mo, R, m, bins, B, st); break;
-    default: return (int)cudaErrorInvalidValue;   // C is 1 to 8
+    default:
+      if (C < 1 || C > MAX_WIDE) return (int)cudaErrorInvalidValue;
+      launch_wide(s, sg, xb, mo, R, m, bins, C, B, st);
   }
   return (int)cudaGetLastError();
 }

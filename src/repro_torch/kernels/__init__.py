@@ -9,7 +9,9 @@ from Python: in a step captured as a CUDA graph (``core.compiled``) a
 wrapper counts once while the step is captured (and once more in the
 warm-up before it), and a replay counts nothing, nor does a count say
 whether a kernel inside a conditional node ran.  A graph run's launches
-are read from the device trace (``chip_smoke.py``).
+are read from the device trace (``chip_smoke.py``).  The ``rule_stats``
+wrappers also count the launches of the kernel's wide form (more than 8
+columns) in ``<wrapper>.wide_launches``.
 """
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -33,6 +35,7 @@ COUNTED = {**KERNELS, "segment_sum": segment_sum,
 def reset_launches() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+    rule_stats_scatter.wide_launches = segment_sum.wide_launches = 0
 
 
 def launches() -> dict[str, int]:

@@ -32,7 +32,11 @@ from repro_torch.kernels.rule_stats.ref import (batch_sum_with,
                                                 segment_update_with)
 
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-MAX_MOMENTS = 8         # the largest moment count csrc/rule_stats.cu takes
+# the columns csrc/rule_stats.cu takes: up to MAX_MOMENTS a thread keeps a
+# cell's sums in registers; up to MAX_COLUMNS (its MAX_WIDE) its wide form
+# takes a thread per (cell, column), for CluStream's 2d-column CF scatter
+MAX_MOMENTS = 8
+MAX_COLUMNS = 4096
 
 
 def rule_moments(y, w=None):
@@ -43,7 +47,8 @@ def rule_moments(y, w=None):
 
 def _scatter(stats, seg, xbin, mom, wrapper):
     """The plain version for CPU tensors; for CUDA tensors the kernel,
-    counted in ``wrapper.launches``."""
+    counted in ``wrapper.launches``, and a launch of its wide form (more
+    than ``MAX_MOMENTS`` columns) in ``wrapper.wide_launches`` too."""
     if stats.device.type == "cpu":
         return rule_stats_scatter_ref(stats, seg, xbin, mom)
     R, m, bins, C = stats.shape
@@ -52,9 +57,9 @@ def _scatter(stats, seg, xbin, mom, wrapper):
     _build.check_tensor(seg, torch.int32, (B,), "seg", stats.device)
     _build.check_tensor(xbin, torch.int32, (B, m), "xbin", stats.device)
     _build.check_tensor(mom, torch.float32, (B, C), "mom", stats.device)
-    if C > MAX_MOMENTS:
-        raise ValueError(f"rule_stats kernel takes at most {MAX_MOMENTS} "
-                         f"moments, got {C}")
+    if C > MAX_COLUMNS:
+        raise ValueError(f"rule_stats kernel takes at most {MAX_COLUMNS} "
+                         f"columns, got {C}")
     if R * m * bins * C == 0:
         return stats
     fn = _build.function("rule_stats", "rule_stats_launch", _ARGTYPES)
@@ -63,6 +68,8 @@ def _scatter(stats, seg, xbin, mom, wrapper):
                  mom.data_ptr(), R, m, bins, C, B, _build.stream_of(stats))
     _build.check(err, "rule_stats")
     wrapper.launches += 1
+    if C > MAX_MOMENTS:
+        wrapper.wide_launches += 1
     return stats
 
 
@@ -74,15 +81,17 @@ def rule_stats_scatter(stats, seg, xbin, mom):
 
 
 def segment_sum(out, seg, xbin, vals):
-    """The same scatter, and kernel, for the path's float reductions: the
-    per-rule sums (``jax.ops.segment_sum``; one attribute, one bin) and the
-    levels of ``batch_sum``.  Counted apart from ``rule_stats_scatter``, so
-    that a run shows the moment statistics' own launches."""
+    """The same scatter, and kernel, for the paths' float reductions: the
+    per-rule sums (``jax.ops.segment_sum``; one attribute, one bin), the
+    levels of ``batch_sum`` and CluStream's CF scatter (its 2d columns of
+    x | x^2 in the kernel's wide form).  Counted apart from
+    ``rule_stats_scatter``, so that a run shows the moment statistics' own
+    launches."""
     return _scatter(out, seg, xbin, vals, segment_sum)
 
 
-rule_stats_scatter.launches = 0
-segment_sum.launches = 0
+rule_stats_scatter.launches = rule_stats_scatter.wide_launches = 0
+segment_sum.launches = segment_sum.wide_launches = 0
 
 
 def rule_stats_update(stats, seg, xbin, mom, *, impl: str = "auto",
@@ -112,5 +121,5 @@ def batch_sum(vals, shape=None, *, scatter=None):
     return batch_sum_with(scatter or segment_sum, vals, shape)
 
 
-__all__ = ["MAX_MOMENTS", "batch_sum", "rule_moments", "rule_stats_scatter",
-           "rule_stats_update", "segment_sum"]
+__all__ = ["MAX_COLUMNS", "MAX_MOMENTS", "batch_sum", "rule_moments",
+           "rule_stats_scatter", "rule_stats_update", "segment_sum"]

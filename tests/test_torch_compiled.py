@@ -150,8 +150,9 @@ def test_jit_engine_run_stream_bit_identical_to_jax(kind):
 
 def test_jit_engine_step_advances_its_own_carry():
     """step() primes eagerly, then replays one compiled step per topology;
-    it equals the StreamEngine step by step, and refuses the chunked
-    runtime's knobs."""
+    it equals the StreamEngine step by step.  The chunked runtime's knobs
+    are refused without a chunked stream; with chunk_len the same steps
+    run chunk by chunk, bit for bit the monolithic run."""
     x, y = _stream("vht")
     topo = build_vht_topology(VHTConfig(TreeConfig(**TREE)), device=CPU)
     eng, ref = JitEngine(), StreamEngine()
@@ -163,10 +164,14 @@ def test_jit_engine_step_advances_its_own_carry():
         _assert_tree_equal(state_to_numpy(out), state_to_numpy(want_out))
         _assert_tree_equal(state_to_numpy(carry), state_to_numpy(want))
     assert len(eng._compiled) == 1
-    for kw in ({"chunk_len": 4}, {"on_chunk": print},
-               {"collect_outputs": False}):
-        with pytest.raises(NotImplementedError, match="chunked"):
+    for kw in ({"on_chunk": print}, {"collect_outputs": False}):
+        with pytest.raises(ValueError, match="chunked"):
             eng.run_stream(topo, eng.init(topo), [p], **kw)
+    payloads = {"x": _torch(x[:6]), "y": _torch(y[:6])}
+    mono = eng.run_stream(topo, eng.init(topo), payloads)
+    chunked = eng.run_stream(topo, eng.init(topo), payloads, chunk_len=4)
+    for got, want in zip(chunked, mono):
+        _assert_tree_equal(state_to_numpy(got), state_to_numpy(want))
 
 
 # ------------------------------------- capturable steps against the eager

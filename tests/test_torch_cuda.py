@@ -7,7 +7,12 @@ models on the card against their plain runs; the compiled steps
 (core/compiled.py) as CUDA graphs against the eager steps, bit for bit,
 with no sync in any replay; and the ensembles' split_poisson kernel
 against its plain version, the OzaBag, OzaBoost and ShardingEnsemble steps
-compiled against eager, and a short last batch compiled against eager.  Every test here is marked
+compiled against eager, and a short last batch compiled against eager;
+the rule_stats kernel's wide form (segment_sum with up to 4096 columns:
+CluStream's CF scatter) against its plain version, CluStream d32-K100 on
+the chunked runtime eager, compiled and plain alike, a checkpointed
+kill/resume on the card, and a capture that another thread's staging of
+chunks does not invalidate.  Every test here is marked
 ``cuda`` and skips without a CUDA device; the file imports nothing of JAX,
 so it runs where JAX is not installed:
 
@@ -22,7 +27,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
+from repro_torch.kernels.rule_stats.ops import (MAX_COLUMNS, batch_sum,
+                                                rule_moments,
                                                 rule_stats_scatter,
                                                 rule_stats_update,
                                                 segment_sum)
@@ -445,6 +451,52 @@ def test_segment_sum_kernel_bit_identical(cuda, rows, C, B, kind):
     want = rule_stats_scatter_ref(zeros.clone(), seg, xb, vals)
     assert torch.equal(_bits(out), _bits(want))
     assert launches()["segment_sum"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 9, 256])
+@pytest.mark.parametrize("B", [16, 512])
+def test_segment_sum_wide_columns_bit_identical(cuda, C, B):
+    """CluStream's CF scatter through segment_sum: K + 1 = 257 segments,
+    K the discard, with ids that take it; C = 9 and 256 take the kernel's
+    wide form (a thread per (segment, column)), C <= 8 its register form.
+    From zeros as CluStream calls it, and onto old sums."""
+    rng = np.random.RandomState(C * 1000 + B)
+    K = 256
+    seg = rng.randint(0, K + 1, B).astype(np.int32)
+    seg[::7] = K                                  # the discard segment
+    vals = (rng.randn(B, C) * 3).astype(np.float32)
+    seg, vals = _t(seg).to(cuda), _t(vals).to(cuda)
+    xb = torch.zeros((B, 1), dtype=torch.int32, device=cuda)
+    old = _t(rng.randn(K + 1, 1, 1, C).astype(np.float32)).to(cuda)
+    for start in (torch.zeros_like(old), old):
+        out = segment_sum(start.clone(), seg, xb, vals)
+        want = rule_stats_scatter_ref(start.clone(), seg, xb, vals)
+        assert torch.equal(_bits(out), _bits(want))
+    assert launches()["segment_sum"] == 2
+    assert segment_sum.wide_launches == (2 if C > 8 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,m,nb,C,B", [(9, 3, 4, 20, 1100), (300, 2, 1, 70, 64),
+                                        (5, 1, 3, 4096, 40)])
+def test_rule_stats_wide_form_at_other_shapes(cuda, R, m, nb, C, B):
+    """The wide form with several attributes and bins, more than one tile
+    (1100 rows), more cells than a block takes (300), the small-batch path
+    and the most columns it takes; rows and bins out of range dropped.
+    One column more than that raises."""
+    rng = np.random.RandomState(R + C)
+    seg = _t(rng.randint(-1, R + 2, B).astype(np.int32)).to(cuda)
+    xbin = _t(rng.randint(-1, nb + 1, (B, m)).astype(np.int32)).to(cuda)
+    vals = _t((rng.randn(B, C) * 2).astype(np.float32)).to(cuda)
+    stats = _t(rng.randn(R, m, nb, C).astype(np.float32)).to(cuda)
+    out = segment_sum(stats.clone(), seg, xbin, vals)
+    want = rule_stats_scatter_ref(stats.clone(), seg, xbin, vals)
+    assert torch.equal(_bits(out), _bits(want))
+    wide = MAX_COLUMNS + 1
+    with pytest.raises(ValueError, match="columns"):
+        segment_sum(torch.zeros((R, m, nb, wide), device=cuda), seg, xbin,
+                    torch.zeros((B, wide), device=cuda))
 
 
 @pytest.mark.cuda
@@ -907,3 +959,128 @@ def test_short_last_batch_compiled_equals_eager(cuda, kind):
     want = PrequentialEvaluation(make(), batches, compiled=False).run()
     assert got.curve == want.curve and got.metric == want.metric
     _assert_bits_equal(got.extra["state"], want.extra["state"])
+
+
+def _blob_fetch(d, chunk_len, batch=512, seed=0, n_blobs=8):
+    """Chunk i of benchmarks/clustream_benchmarks.py's blob stream, drawn
+    with numpy from (seed, i): points 0.05 (normal) around 8 uniform
+    centers in [0, 1)^d."""
+    centers = np.random.default_rng(seed).uniform(size=(n_blobs, d))
+
+    def fetch(i):
+        rng = np.random.default_rng([seed, i])
+        c = rng.integers(0, n_blobs, (chunk_len, batch))
+        x = centers[c] + 0.05 * rng.standard_normal((chunk_len, batch, d))
+        return {"x": x.astype(np.float32)}
+    return fetch
+
+
+def _clustream(cuda, mode):
+    from repro_torch.ml.clustream import CluStream, CluStreamConfig
+    return CluStream(CluStreamConfig(n_dims=32, n_micro=100, n_macro=8,
+                                     period=2048, macro_impl=mode),
+                     device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["step", "boundary"])
+def test_clustream_eager_compiled_and_plain_alike(cuda, mode, monkeypatch):
+    """CluStream d32-K100, 20 batches of 512 from the blob stream in chunks
+    of 4 (period 2048, aligned): the compiled chunked run (JitEngine), the
+    eager ChunkedStream loop (LocalEngine) and the eager loop with the
+    plain versions give the same per-batch metrics and final state, bit
+    for bit; the CF scatter launches segment_sum, the plain run none; the
+    macro phase fires."""
+    import functools
+    from repro_torch.core.engines import JitEngine, LocalEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.ml import clustream
+
+    stream = ChunkedStream.from_fn(_blob_fetch(32, 4), n_chunks=5,
+                                   chunk_len=4)
+    learner = _clustream(cuda, mode)
+    eng, loc = JitEngine(), LocalEngine()
+    carry, outs = eng.run_stream_chunked(learner, eng.init(learner), stream)
+    reset_launches()
+    states, eager = loc.run_stream(learner, loc.init(learner), stream)
+    assert launches()["segment_sum"] >= 20 * 2
+    monkeypatch.setattr(clustream, "segment_sum", rule_stats_scatter_ref)
+    monkeypatch.setattr(clustream, "batch_sum", functools.partial(
+        batch_sum, scatter=rule_stats_scatter_ref))
+    reset_launches()
+    plain_states, plain = loc.run_stream(learner, loc.init(learner), stream)
+    assert sum(launches().values()) == 0
+    eager, plain = stack_outputs(eager), stack_outputs(plain)
+    for k in ("seen", "ssq", "n_active"):
+        assert torch.equal(_bits(outs["metrics"][k]),
+                           _bits(eager["metrics"][k]))
+        assert torch.equal(_bits(plain["metrics"][k]),
+                           _bits(eager["metrics"][k]))
+    _assert_bits_equal(carry["states"], states)
+    _assert_bits_equal(plain_states, states)
+    assert float(states["clustream"]["macro_t"]) == 20 * 512  # 5 periods
+
+
+@pytest.mark.cuda
+def test_clustream_kill_resume_on_the_card(cuda, tmp_path):
+    """Boundary-mode CluStream through ChunkedPrequentialEvaluation with a
+    checkpoint after every chunk: killed after chunk 2 (the later
+    checkpoints gone) and resumed, it ends as the uninterrupted run, bit
+    for bit; the carry comes back to the card."""
+    import pathlib
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.evaluation import ChunkedPrequentialEvaluation
+    from repro_torch.data.pipeline import ChunkedStream
+
+    stream = ChunkedStream.from_fn(_blob_fetch(32, 4), n_chunks=5,
+                                   chunk_len=4)
+    learner = _clustream(cuda, "boundary")
+    want = ChunkedPrequentialEvaluation(learner, stream).run()
+    mgr = CheckpointManager(tmp_path, keep=0)
+    ChunkedPrequentialEvaluation(learner, stream, checkpoint=mgr).run(
+        resume=False)
+    for s in mgr.all_steps():
+        if s > 2:
+            shutil.rmtree(pathlib.Path(tmp_path) / f"step_{s:010d}")
+    ev = ChunkedPrequentialEvaluation(learner, stream,
+                                      checkpoint=CheckpointManager(tmp_path))
+    got = ev.run(resume=True)
+    assert ev.report["events"] == [("resume", 2)]
+    assert got.curve == want.curve and got.extra["seen"] == 20 * 512
+    assert got.extra["carry"]["states"]["clustream"]["n"].is_cuda
+    _assert_bits_equal(got.extra["carry"]["states"],
+                       want.extra["carry"]["states"])
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_another_thread_staging_chunks(cuda):
+    """A chunked stream's producer stages chunks (pinned memory, a copy on
+    its own stream, a wait on it) while the consumer captures a step: the
+    capture is thread-local, so the producer does not invalidate it."""
+    import threading
+    from repro_torch.core.compiled import compile_step
+
+    stop = threading.Event()
+
+    def stage():
+        side = torch.cuda.Stream(cuda)
+        while not stop.is_set():
+            with torch.cuda.stream(side):
+                torch.ones(1 << 16).pin_memory().to(cuda, non_blocking=True)
+            side.synchronize()
+
+    producer = threading.Thread(target=stage)
+    producer.start()
+    try:
+        for _ in range(20):
+            zeros = {"a": torch.zeros(1024, device=cuda)}
+            ones = torch.ones(1024, device=cuda)
+            step = compile_step(lambda s, x: ({"a": s["a"] + x}, {}), zeros,
+                                ones)
+            state, _ = step(zeros, ones)
+            assert torch.equal(state["a"], ones)
+    finally:
+        stop.set()
+        producer.join()

@@ -20,8 +20,11 @@ both C entry points run on the same inputs:
   B = 512 and 510, rows drawn as chip_smoke.py draws them; a skewed batch
   with seven in ten instances in the default rule's row; a batch in one
   cell) and its three segment_sum shapes (the per-rule sums [65, 1, 1, 3],
-  the batch sum's levels [16, 1, 1, 4] and [1, 1, 1, 4]): the elements
-  that differ bit for bit from each other and from the plain version;
+  the batch sum's levels [16, 1, 1, 4] and [1, 1, 1, 4]), and CluStream's
+  CF scatter x | x^2 at d128-K256 ([257, 1, 1, 256], B = 512, rows spread
+  as a blob stream spreads them, and all in one segment; skipped against
+  a checkout without the wide form): the elements that differ bit for bit
+  from each other and from the plain version;
 - split_gain at the VHT main path's gathered tile [16, 1000, 8, 2] and
   full fallback [255, 1000, 8, 2]: the elements that differ bit for bit,
   and the NEG masks;
@@ -251,7 +254,31 @@ def rule_stats_cases(dev):
     cases["batch sum level 2"] = (
         torch.zeros((n2, 1, 1, 4), device=dev), ids2, xb[:n1],
         t((rng.randn(n1, 4) * 2).astype(np.float32)))
+    # CluStream's CF scatter x | x^2 at d128-K256 (the wide form): rows
+    # as a blob stream spreads them (13 % discarded into segment 256, 70 %
+    # of the rest in 8 segments), and all in one segment
+    K = 256
+    blob = np.where(rng.uniform(size=B) < 0.13, K, np.where(
+        rng.uniform(size=B) < 0.7, rng.randint(0, 8, B) * 31,
+        rng.randint(0, K, B)))
+    vals = t(rng.randn(B, 2 * 128).astype(np.float32))
+    for what, seg in (("CF scatter, blob", blob),
+                      ("CF scatter, one segment", np.full(B, 5))):
+        cases[what] = (torch.zeros((K + 1, 1, 1, 2 * 128), device=dev),
+                       t(seg.astype(np.int32)), xb, vals)
     return cases
+
+
+def wide_form(lib_set):
+    """Whether a checkout's rule_stats takes more than 8 columns (the wide
+    form of CluStream's CF scatter): its launcher refuses a launch of 9
+    columns on empty inputs otherwise."""
+    import torch
+    from repro_torch.kernels.rule_stats import ops as rs_ops
+    fn = entry(lib_set["rule_stats"], "rule_stats_launch", rs_ops._ARGTYPES)
+    z = torch.zeros(16, device="cuda")
+    return fn(z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(), 1, 1,
+              1, 9, 0, torch.cuda.current_stream().cuda_stream) == 0
 
 
 def ab_rule_stats(libs, stream, smi):
@@ -265,6 +292,10 @@ def ab_rule_stats(libs, stream, smi):
             torch.device("cuda")).items():
         R, m, bins, C = stats.shape
         n = seg.shape[0]
+        if C > rs_ops.MAX_MOMENTS and not wide_form(libs["other"]):
+            print(f"rule_stats {what}: the other checkout has no wide form "
+                  f"(C = {C}); skipped", flush=True)
+            continue
         runs, got = {}, {}
         for tag in ("other", "this"):
             fn = entry(libs[tag]["rule_stats"], "rule_stats_launch",
