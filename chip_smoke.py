@@ -90,7 +90,35 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  32 greedy tokens), whose last replay logits must agree with
                  the prefill step on the same prompts.  Prints TTFT, decode
                  ms per step and tokens/s, and the device's busy share.
-  10. result  -- one JSON line of per-kernel numbers (rule_stats as
+  10. serve   -- the pipelined against the synchronous driver on VHT
+                 dense-1000 and CluStream d128-K256, bit for bit, with µs
+                 per batch and busy share.  Train while serving: the main
+                 path's 25 chunks of 8 (VHT dense-1000 wok) again and again
+                 for 500 chunks, publishing a snapshot at every chunk, in
+                 five turns: each driver without and with a ModelServer at
+                 the JAX serving benchmark's settings (max_batch 16,
+                 max_wait_ms 2, queue_limit 128, deadline_ms 250,
+                 staleness limit 8) that answers 250 requests/s played open
+                 loop from the main thread, and the pipelined driver with
+                 the server and a checkpoint every 5 chunks; the collector
+                 frozen before each turn, a full collection timed before
+                 and after the freeze.  Every request answered (none shed
+                 or overloaded), answers from at least two snapshot
+                 versions, every tenth equal to reference_predict on the
+                 version it names; latency, staleness, a publish's device
+                 ms, µs per batch, the host ms of a chunk's dispatch, a
+                 publish and a checkpoint save, the longest gap between
+                 chunks, the collector's pauses and the process's CPU
+                 share.  A NaN in the
+                 carry after chunk 5 retried (bit for bit the clean run)
+                 and skipped (recorded), a kill after chunk 12 resumed (bit
+                 for bit); serve/train parity in VHT, OzaBag (M = 10), VAMR
+                 and CluStream at a chunk boundary, the kernel predict bit
+                 for bit the plain one; tree_route at the server's batch of
+                 16, M = 1 and 10, timed; and a short last batch's step
+                 captured while the server answers, the run bit for bit the
+                 eager one.
+  11. result  -- one JSON line of per-kernel numbers (rule_stats as
                  segment_sum on its own line, timed on the CluStream CF
                  scatter), then, as the last line,
                  {"ok": true, "device": {...}}.
@@ -1884,6 +1912,679 @@ def phase_clustream(dev, smi):
     return out
 
 
+# ------------------------------------------------------------ serve phase
+
+# the JAX serving benchmark's configuration (benchmarks/serving_benchmarks.py:
+# max_batch 16, max_wait_ms 2, queue_limit 128, deadline_ms 250, staleness
+# limit 8 chunks), played open-loop at SERVE_RATE requests/s
+SERVE_CFG = {"max_batch": 16, "max_wait_ms": 2.0, "queue_limit": 128,
+             "deadline_ms": 250.0}
+SERVE_STALENESS, SERVE_RATE = 8, 250.0
+# train while serving trains over the main path's 25 chunks again and again
+# for SERVE_CHUNKS chunks (4000 batches: seconds a turn, over a thousand
+# requests at SERVE_RATE); the turn that checkpoints, and the rollback
+# checks, save every CKPT_EVERY chunks
+SERVE_CHUNKS, CKPT_EVERY = 500, 5
+# the requests a served turn may shed or refuse as overloaded: none, so a
+# stall that holds a request past its deadline or fills the queue fails
+SERVE_LOST = 0
+# the train-while-serving turns, in this order: (driver, server, checkpoint)
+SERVE_TURNS = (("sync", False, False), ("pipelined", False, False),
+               ("pipelined", True, False), ("sync", True, False),
+               ("pipelined", True, True))
+# what VHT's predict reads of a snapshot
+PREDICT = ("split_attr", "split_bin", "children", "class_counts")
+
+
+def dense_batches(dev, n_batches, seed):
+    """The main path's dense-1000 batches drawn on the card from ``seed``,
+    stacked: (x [n, B, 1000] int32, y [n, B])."""
+    from repro_torch.data.generators import RandomTreeGenerator
+    from repro_torch.data.pipeline import StreamPipeline
+    gen = RandomTreeGenerator(n_cat=M_ATTRS // 2, n_num=M_ATTRS // 2,
+                              depth=8, device=dev)
+    return StreamPipeline(gen, batch=B, n_batches=n_batches, n_bins=BINS,
+                          seed=seed, device=dev).materialize()
+
+
+def serve_stream(x, y, dev):
+    """The main path's batches (x, y: [MAIN_BATCHES, B, ...] on the card)
+    as a ChunkedStream of SERVE_CHUNKS chunks of CS_CHUNK: chunk i is the
+    main path's chunk i mod CS_CHUNKS."""
+    from repro_torch.data.pipeline import ChunkedStream
+
+    def fetch(i):
+        at = i % CS_CHUNKS * CS_CHUNK
+        return {"x": x[at:at + CS_CHUNK], "y": y[at:at + CS_CHUNK]}
+    return ChunkedStream.from_fn(fetch, SERVE_CHUNKS, CS_CHUNK, device=dev)
+
+
+def request_rows(dev):
+    """2048 rows of the same generator from another seed, on the host: one
+    request each."""
+    x, _ = dense_batches(dev, 4, 1)
+    return x.reshape(-1, M_ATTRS).cpu().numpy()
+
+
+def evaluation(learner, stream, engine=None, **kw):
+    """ChunkedPrequentialEvaluation on the learner, on ``engine`` when one
+    is given: an engine that ran the learner before holds its captured
+    steps, so the run captures nothing."""
+    from repro_torch.core.evaluation import ChunkedPrequentialEvaluation
+    ev = ChunkedPrequentialEvaluation(learner, stream, **kw)
+    if engine is not None:
+        ev.engine = engine
+    return ev
+
+
+def same_run(a, b, what):
+    """Two evaluation results alike: metric, curve and the final carry, bit
+    for bit."""
+    require(a.metric == b.metric and a.curve == b.curve,
+            f"{what}: the metric or curve differs")
+    require(same_state(a.extra["carry"]["states"], b.extra["carry"]["states"]),
+            f"{what}: the final carry differs")
+
+
+def busy_run(run):
+    """run() under torch.profiler: (its result, device busy µs over the
+    run's wall µs); the trace must hold device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    require(busy > 0, "profiler trace shows no device time")
+    names = " ".join(e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    return res, busy / wall_us, names
+
+
+def drivers(what, learner, stream, engine, smi):
+    """The pipelined and the synchronous driver on the learner, on the
+    engine (the first run captures its steps), in turns: pipelined, sync,
+    sync, pipelined, for the µs per batch (the mean of each driver's two),
+    then once each under the profiler for the device busy share.  Every run
+    bit for bit alike.  Returns (a pipelined result, numbers, the profile's
+    kernel names)."""
+    out = {"pipelined": {"us_per_batch_runs": []},
+           "sync": {"us_per_batch_runs": []}}
+    first = None
+    for name in ("pipelined", "sync", "sync", "pipelined"):
+        r = evaluation(learner, stream, engine,
+                       pipeline=name == "pipelined").run()
+        first = first or r
+        same_run(r, first, f"{what} {name}: against the first run")
+        out[name]["us_per_batch_runs"].append(1e6 * B / r.throughput)
+    names = ""
+    for name in ("pipelined", "sync"):
+        r, share, names = busy_run(lambda: evaluation(
+            learner, stream, engine, pipeline=name == "pipelined").run())
+        same_run(r, first, f"{what} {name} profiled: against the first run")
+        runs = out[name]["us_per_batch_runs"]
+        out[name].update(us_per_batch=sum(runs) / len(runs),
+                         busy_share=share)
+    log(f"{what} ({stream.n_chunks} chunks of {CS_CHUNK}), pipelined "
+        f"against synchronous driver (in turns P S S P): "
+        f"{out['pipelined']['us_per_batch_runs']} against "
+        f"{out['sync']['us_per_batch_runs']} us/batch, device busy "
+        f"{100 * out['pipelined']['busy_share']:.1f} against "
+        f"{100 * out['sync']['busy_share']:.1f} % of the wall (profiled "
+        f"runs); metric, curve and final carry bit for bit alike on {smi}")
+    return first, out, names
+
+
+class HostClock:
+    """Host seconds spent in wrapped calls, by name (wall time: time that
+    another thread holds the interpreter lock counts), the longest call of
+    each, and, as a ``gc.callbacks`` entry, the garbage collector's pauses
+    by generation; with the process's CPU seconds per wall second between
+    ``start()`` and ``summary()``."""
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self.longest = collections.Counter()
+        self.pauses: list = []
+        self._start = None
+        self._host = None
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                self.seconds[name] += dt
+                self.calls[name] += 1
+                self.longest[name] = max(self.longest[name], dt)
+        return timed
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            self.pauses.append((info["generation"],
+                                1e3 * (time.perf_counter() - self._start)))
+            self._start = None
+
+    def start(self):
+        self._host = (time.perf_counter(), time.process_time())
+
+    def summary(self):
+        wall = time.perf_counter() - self._host[0]
+        cpu = time.process_time() - self._host[1]
+        full = [ms for gen, ms in self.pauses if gen == 2]
+        return {"ms_per_call": {k: 1e3 * v / self.calls[k]
+                                for k, v in self.seconds.items()},
+                "max_ms": {k: 1e3 * v for k, v in self.longest.items()},
+                "gc_pauses": len(self.pauses),
+                "gc_ms": sum(ms for _, ms in self.pauses),
+                "gc_max_ms": max((ms for _, ms in self.pauses), default=0.0),
+                "gc_full": len(full), "gc_full_max_ms": max(full, default=0.0),
+                "cpu_per_wall": cpu / wall}
+
+
+def serve_requests(srv, rows, until, rate=SERVE_RATE):
+    """Open loop: one request every 1/rate s (late ones at once) from the
+    calling thread until ``until()``; returns the requests."""
+    reqs, t0 = [], time.perf_counter()
+    while not until():
+        target = t0 + len(reqs) / rate
+        now = time.perf_counter()
+        if now < target:
+            time.sleep(min(target - now, 0.005))
+            continue
+        reqs.append(srv.submit(rows[len(reqs) % len(rows)]))
+    return reqs
+
+
+def served_checks(srv, reqs, snaps, learner, count):
+    """A served turn's books and answers: every request answered or
+    accounted for, at most SERVE_LOST shed or refused as overloaded, none
+    unavailable, answers from at least two snapshot versions, every tenth
+    answer equal to reference_predict on the version it names.  Returns the
+    turn's serving numbers."""
+    import torch
+    from repro_torch.serving import reference_predict
+    srv.stop(drain=True)
+    for r in reqs:
+        r.result(timeout=30)
+    st = srv.status()
+    require(st["accounting_ok"] and st["pending"] == 0
+            and st["submitted"] == len(reqs) == st["answered"]
+            + st["shed"] + st["rejected_overloaded"]
+            + st["rejected_unavailable"],
+            f"train while serving: the books do not balance: {st}")
+    lost = st["shed"] + st["rejected_overloaded"]
+    require(lost <= SERVE_LOST and st["rejected_unavailable"] == 0,
+            f"train while serving: {st['shed']} requests shed, "
+            f"{st['rejected_overloaded']} overloaded and "
+            f"{st['rejected_unavailable']} unavailable of {len(reqs)} (at "
+            f"most {SERVE_LOST} shed or overloaded): a stall")
+    answered = [r for r in reqs if r.status == "answered"]
+    versions = sorted({r.meta["snapshot_version"] for r in answered})
+    require(len(versions) >= 2, "train while serving: the answers came "
+            f"from snapshot versions {versions}")
+    for r in answered[::10]:
+        tree = snaps[r.meta["snapshot_version"]]
+        want = reference_predict(learner, tree,
+                                 torch.from_numpy(r.x[None].copy()))
+        require(int(r.pred) == int(want[0]),
+                "train while serving: an answer differs from "
+                "reference_predict on the snapshot it names")
+    require(count["tree_route"] >= st["batches"] and count["vht_stats"],
+            f"train while serving: launches {count}, {st['batches']} "
+            "served batches")
+    lat = sorted(r.meta["latency_ms"] for r in answered)
+    stale = [r.meta["staleness_chunks"] for r in answered]
+    return {"requests": len(reqs), "answered": len(answered),
+            "shed": st["shed"], "overloaded": st["rejected_overloaded"],
+            "batches": st["batches"], "versions": len(versions),
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "latency_max_ms": lat[-1],
+            "staleness_mean": sum(stale) / len(stale),
+            "staleness_max": max(stale),
+            "tree_route_per_request": st["batches"] / len(answered),
+            "checked": len(answered[::10])}
+
+
+def train_while_serving(learner, stream, engine, rows, smi):
+    """SERVE_TURNS: the run over ``stream`` (SERVE_CHUNKS chunks) on a
+    worker thread, published at every chunk, on either driver, with a
+    checkpoint every CKPT_EVERY chunks or none, and with a ModelServer
+    (SERVE_CFG) that the main thread plays requests at from the start, or
+    without (the same run, no requests).  The server's first snapshot is
+    the untrained model; each served turn passes ``served_checks``.
+
+    Before each turn the garbage collector freezes what the process holds
+    (``gc.freeze``), as a long-running server does after its start-up: a
+    full collection walks every object it tracks while it holds the
+    interpreter lock, and on the heap that the smoke's earlier phases
+    leave it stops the server long enough to shed requests.  One full
+    collection is timed before the first freeze and one after it.  Each
+    turn records its µs per batch, the host ms of a chunk's dispatch, of a
+    publish and of a checkpoint save (mean and longest), the median and
+    the longest gap between two chunks' ends, the collector's pauses and
+    the process's CPU seconds per wall second: what a stall shows in."""
+    import concurrent.futures
+    import gc
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import (ModelServer, ServeConfig,
+                                     SnapshotPublisher)
+
+    ckpt = ROOT / "build" / "serve_checkpoints"
+    runs, served = [], None
+    heap = {"objects": len(gc.get_objects())}
+    for when in ("before", "after"):
+        t0 = time.perf_counter()
+        gc.collect()
+        heap[f"full_collection_ms_{when}_freeze"] = \
+            1e3 * (time.perf_counter() - t0)
+        gc.freeze()
+    for driver, serve, with_ckpt in SERVE_TURNS:
+        gc.collect()
+        gc.freeze()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        pub = SnapshotPublisher(max_staleness_chunks=SERVE_STALENESS)
+        snaps, ends = {}, []
+
+        def keep(outs, chunk, carry, pub=pub, snaps=snaps, ends=ends):
+            # the tree of each version on the host (a snapshot kept alive on
+            # the card would make every publish allocate anew), and the time
+            # the chunk's host work ended
+            snap = pub.current()
+            snaps[snap.version] = {k: snap.state[k].cpu() for k in PREDICT}
+            ends.append(time.perf_counter())
+
+        require(pub.publish(-1, learner.init()), "the first snapshot")
+        keep(None, None, None)
+        cm = CheckpointManager(ckpt, keep=2) if with_ckpt else None
+        ev = evaluation(learner, stream, engine, publisher=pub, on_chunk=keep,
+                        checkpoint=cm, checkpoint_every=CKPT_EVERY,
+                        pipeline=driver == "pipelined")
+        srv = ModelServer(learner, pub, ServeConfig(**SERVE_CFG)) \
+            if serve else None
+        # the host time of the chunks' dispatch, the publishes and the
+        # checkpoint saves, through instance attributes dropped after
+        clock = HostClock()
+        engine.run_stream_chunked = clock.wrap("chunk_dispatch",
+                                               engine.run_stream_chunked)
+        pub.publish = clock.wrap("publish", pub.publish)
+        if cm is not None:
+            cm.save = clock.wrap("checkpoint_save", cm.save)
+        torch.cuda.synchronize()
+        reset_launches()
+        gc.callbacks.append(clock)
+        clock.start()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(ev.run, resume=False)
+            reqs = (serve_requests(srv, rows, fut.done) if serve else [])
+            res = fut.result()
+        gc.callbacks.remove(clock)
+        del engine.run_stream_chunked
+        count = launches()
+        gaps = [b - a for a, b in zip(ends[1:], ends[2:])]
+        run = {"driver": driver, "server": serve,
+               "checkpoint_every": CKPT_EVERY if with_ckpt else None,
+               "us_per_batch": 1e6 * B / res.throughput,
+               "published": pub.published,
+               "chunk_gap_max_ms": 1e3 * max(gaps),
+               "chunk_gap_median_ms": 1e3 * statistics.median(gaps),
+               **clock.summary()}
+        if serve:
+            run.update(served_checks(srv, reqs, snaps, learner, count))
+            if served is None:
+                served = (run, pub.current().state)
+        runs.append(run)
+        ckpt_says = (f"a checkpoint every {CKPT_EVERY} chunks" if with_ckpt
+                     else "no checkpoint")
+        log(f"train while serving, {driver} driver, "
+            f"{'with' if serve else 'without'} the server, {ckpt_says}: "
+            f"{run['us_per_batch']:.1f} us/batch; host ms per call "
+            f"{run['ms_per_call']}, longest {run['max_ms']}; gap between "
+            f"chunk ends median {run['chunk_gap_median_ms']:.2f} ms, longest "
+            f"{run['chunk_gap_max_ms']:.2f}; {run['gc_pauses']} collector "
+            f"pauses, {run['gc_ms']:.1f} ms, the longest "
+            f"{run['gc_max_ms']:.2f}, {run['gc_full']} full; CPU s per wall "
+            f"s {run['cpu_per_wall']:.2f}"
+            + (f"; {run['requests']} requests, {run['answered']} answered "
+               f"from {run['versions']} snapshot versions, shed "
+               f"{run['shed']}, overloaded {run['overloaded']}; latency p50 "
+               f"{run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f}, max "
+               f"{run['latency_max_ms']:.3f}; staleness mean "
+               f"{run['staleness_mean']:.2f}, max {run['staleness_max']}; "
+               f"{run['batches']} served batches" if serve else ""))
+    gc.unfreeze()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run, state = served
+    copy = timed(lambda: {k: v.detach().clone() for k, v in state.items()},
+                 n=20, reps=3)
+    log(f"train while serving (VHT dense-1000 wok, {SERVE_CHUNKS} chunks of "
+        f"{CS_CHUNK}, the main path's {CS_CHUNKS} again and again, published "
+        f"every chunk; server {SERVE_CFG}, {SERVE_RATE:.0f} requests/s open "
+        f"loop): every request answered, sampled answers equal "
+        f"reference_predict on their snapshot; a publish's copy "
+        f"{copy['ms']:.4f} device ms; the collector: a full collection of "
+        f"the {heap['objects']} objects the process held "
+        f"{heap['full_collection_ms_before_freeze']:.1f} ms, "
+        f"{heap['full_collection_ms_after_freeze']:.2f} ms once they were "
+        f"frozen, on {smi}")
+    return {"runs": runs, "publish_copy_ms": copy["ms"], "heap": heap,
+            "tree_route_per_request": run["tree_route_per_request"]}, state
+
+
+def poison_and_resume(learner, stream, engine, clean, smi):
+    """On the pipelined driver: a NaN in the carry after chunk 5, retried
+    from the checkpoint before it, ends as the clean run; skipped, the
+    chunk is recorded and its batches are missing; a run killed after chunk
+    12 and resumed ends as the clean run."""
+    import concurrent.futures
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import FaultInjector, SimulatedKill
+
+    ckpt = ROOT / "build" / "serve_checkpoints"
+    out = {}
+    for policy in ("retry", "skip"):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ev = evaluation(learner, stream, engine,
+                        checkpoint=CheckpointManager(ckpt, keep=0),
+                        checkpoint_every=CKPT_EVERY,
+                        injector=FaultInjector(poison_at_chunk=5),
+                        poison_policy=policy)
+        r = ev.run(resume=False)
+        rep = ev.report
+        require(rep["events"][:1] == [("poison", 5, policy, 5)]
+                and rep["rollbacks"] == 1,
+                f"poison {policy}: report {rep['events']}")
+        if policy == "retry":
+            same_run(r, clean, "poison at chunk 5, retried")
+        else:
+            require(rep["skipped_chunks"] == [5] and r.extra["seen"]
+                    == clean.extra["seen"] - CS_CHUNK * B,
+                    f"poison skipped: {rep['skipped_chunks']}, seen "
+                    f"{r.extra['seen']}")
+        out[policy] = {"events": [list(e) for e in rep["events"]]}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    killed = evaluation(learner, stream, engine,
+                        checkpoint=CheckpointManager(ckpt, keep=0),
+                        checkpoint_every=CKPT_EVERY,
+                        injector=FaultInjector(kill_at_chunk=12))
+    # the run dies on a worker, whose future holds the SimulatedKill
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        death = pool.submit(killed.run, resume=False).exception()
+    require(isinstance(death, SimulatedKill),
+            f"the kill at chunk 12 did not fire: {death!r}")
+    killed.checkpoint.wait()
+    ev = evaluation(learner, stream, engine,
+                    checkpoint=CheckpointManager(ckpt, keep=0),
+                    checkpoint_every=CKPT_EVERY)
+    r = ev.run(resume=True)
+    require(ev.report["events"] == [("resume", 10)],
+            f"kill/resume: {ev.report['events']}")
+    same_run(r, clean, "killed after chunk 12 and resumed")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["kill_resume"] = {"resumed_at": 10}
+    log(f"pipelined poison at chunk 5: retried, bit for bit the clean run; "
+        f"skipped, chunk 5 recorded and its {CS_CHUNK * B} instances "
+        f"missing; killed after chunk 12, resumed from the checkpoint before "
+        f"chunk 10, bit for bit the clean run on {smi}")
+    return out
+
+
+def parity_streams(dev):
+    """The four families at their smoke widths, 4 chunks of CS_CHUNK
+    batches each: (learner, chunk payloads, the metric to hold the answer
+    against)."""
+    import torch
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.ml.amrules import RulesConfig, VAMR
+    from repro_torch.ml.clustream import CluStream, CluStreamConfig
+    from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
+    from repro_torch.ml.vht import VHT, VHTConfig
+    n = 4 * CS_CHUNK
+    dense = stream(M_ATTRS, n, dev)
+    xy = {"x": torch.stack([x for x, _ in dense]),
+          "y": torch.stack([y for _, y in dense])}
+    m, rules = rules_stream("waveform", n, dev)
+    rxy = {"x": torch.stack([x for x, _ in rules]),
+           "y": torch.stack([y for _, y in rules])}
+    blobs = {"x": torch.from_numpy(blob_stream(128, n)).to(dev)}
+    cc = CluStreamConfig(n_dims=128, n_micro=256, n_macro=8,
+                         period=CS_PERIOD)
+    return {
+        "VHT dense-1000 wok": (VHT(VHTConfig(tree_config(
+            M_ATTRS, split_delay=4)), device=dev), xy, "correct"),
+        "OzaBag adwin dense-1000": (OzaEnsemble(EnsembleConfig(
+            tree_config(M_ATTRS), n_members=ENS_M), device=dev), xy,
+            "correct"),
+        "VAMR waveform-40": (VAMR(RulesConfig(n_attrs=m, n_bins=BINS,
+                                              max_rules=RULES, n_min=200),
+                                  device=dev), rxy, "abs_err"),
+        "CluStream d128-K256": (CluStream(cc, device=dev), blobs, "ssq")}
+
+
+def serve_train_parity(dev, smi):
+    """For each family: a snapshot published at chunk boundary 2 answers
+    chunk 3's first batch as the training step predicted it (correct,
+    abs_err rtol 1e-5 or ssq rtol 1e-5), and the fast path (the kernels)
+    equals reference_predict (the plain versions) bit for bit."""
+    import torch
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.ml.clustream import pairwise_d2
+    from repro_torch.serving import (SnapshotPublisher, make_predict_fn,
+                                     model_state_of, reference_predict)
+    out, states = {}, {}
+    for what, (learner, payload, metric) in parity_streams(dev).items():
+        eng = JitEngine()
+        carry = eng.init(learner, PRNGKey(0, dev))
+        carries, outs = [], []
+        for chunk in ChunkedStream(payload, CS_CHUNK, device=dev):
+            carry, o = eng.run_stream_chunked(learner, carry, [chunk])
+            carries.append(carry)
+            outs.append(o["metrics"])
+        k = 2
+        pub = SnapshotPublisher()
+        require(pub.publish(k, model_state_of(carries[k])),
+                f"{what}: the snapshot was rejected")
+        state = pub.current().state
+        x = payload["x"][(k + 1) * CS_CHUNK]
+        pred = make_predict_fn(learner)(state, x)
+        want = reference_predict(learner, state, x)
+        require(torch.equal(pred, want), f"{what}: the kernel predict differs "
+                "from the plain predict")
+        got = float(outs[k + 1][metric][0])
+        if metric == "correct":
+            y = payload["y"][(k + 1) * CS_CHUNK]
+            ours = float((pred == y).sum())
+            require(ours == got, f"{what}: {ours} correct, the step {got}")
+        elif metric == "abs_err":
+            y = payload["y"][(k + 1) * CS_CHUNK]
+            ours = float((y - pred).abs().double().sum())
+            require(abs(ours - got) <= 1e-5 * abs(got),
+                    f"{what}: abs_err {ours}, the step's {got}")
+        else:
+            ours = float(pairwise_d2(x, state["macro"]).amin(-1).double()
+                         .sum())
+            require(abs(ours - got) <= 1e-5 * abs(got),
+                    f"{what}: ssq {ours}, the step's {got}")
+        out[what] = {metric: got, "served": ours}
+        states[what] = state
+    log(f"serve/train parity at boundary 2 (chunk 3's first batch): "
+        f"{json.dumps(out)}; kernel predict bit for bit the plain predict, "
+        f"in all four families on {smi}")
+    return out, states
+
+
+def tree_route_at_serve_shape(what, tables, rows, dev, smi):
+    """tree_route at the server's batch (max_batch rows) on ``tables``
+    ([M, N], [M, N], [M, N, 2]) against its plain version, timed (device
+    ms, CUDA events), beside its bound."""
+    import torch
+    from repro_torch.kernels.tree_route.ops import tree_route
+    from repro_torch.kernels.tree_route.ref import tree_route_ref
+    nb = SERVE_CFG["max_batch"]
+    xb = torch.from_numpy(rows[:nb].copy()).to(dev)
+    M = tables[0].shape[0]
+    got = tree_route(*tables, xb, max_depth=DEPTH)
+    want = tree_route_ref(*tables, xb, DEPTH)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"tree_route {what} differs from its "
+            "plain version")
+    steps = route_steps(*tables, xb, DEPTH)
+    moved = tables[0].numel() * 16 + steps * 4 + M * nb * 4
+    bound_ms, bound_by = bound(moved, steps)
+    kt = timed(lambda: tree_route(*tables, xb, max_depth=DEPTH))
+    pt = timed(lambda: tree_route_ref(*tables, xb, DEPTH))
+    e = {"M": M, "B": nb, "ms": kt["ms"], "call_ms": kt["call_ms"],
+         "plain_ms": pt["ms"], "plain_call_ms": pt["call_ms"],
+         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+         "ops": steps, "library_ms": None}
+    log(f"tree_route at the server's shape, {what} (M={M}, B={nb}; exact): "
+        f"device ms {kt['ms']:.5f}, plain {pt['ms']:.5f}, bound "
+        f"{bound_ms:.3g} ({bound_by}), kernel/bound {kt['ms'] / bound_ms:.0f}"
+        f", call ms {kt['call_ms']:.5f} on {smi}")
+    return e
+
+
+def capture_while_serving(learner, engine, rows, dev, smi):
+    """A run whose last chunk holds one short batch (200 of 512 rows): its
+    step is captured anew, mid-run, while a server answers requests; the
+    run raises nothing, and its per-batch metrics and final state equal
+    the eager run's (LocalEngine's ChunkedStream loop)."""
+    import concurrent.futures
+    import torch
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.serving import ModelServer, ServeConfig, SnapshotPublisher
+
+    x, y = dense_batches(dev, 2 * CS_CHUNK + 1, 2)
+    parts = [{"x": x[i:i + CS_CHUNK], "y": y[i:i + CS_CHUNK]}
+             for i in (0, CS_CHUNK)]
+    parts.append({"x": x[-1:, :200].contiguous(),
+                  "y": y[-1:, :200].contiguous()})
+    short = ChunkedStream.from_fn(lambda i: parts[i], 3, CS_CHUNK, device=dev)
+    pub = SnapshotPublisher()
+    require(pub.publish(-1, learner.init()), "the first snapshot")
+    srv = ModelServer(learner, pub, ServeConfig(**SERVE_CFG))
+    seen = []
+    ev = evaluation(learner, short, engine, publisher=pub,
+                    on_chunk=lambda outs, chunk, carry: seen.append(
+                        outs["metrics"]))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(ev.run, resume=False)
+        reqs = serve_requests(srv, rows, fut.done)
+        res = fut.result()
+    srv.stop(drain=True)
+    for r in reqs:
+        r.result(timeout=30)
+    require(srv.status()["accounting_ok"] and srv.status()["pending"] == 0,
+            "capture while serving: the books do not balance")
+    loc = LocalEngine()
+    states, eager = loc.run_stream(learner, loc.init(learner), short)
+    eager = stack_outputs(eager)["metrics"]
+    for key in ("correct", "seen", "dropped", "n_nodes"):
+        got = torch.cat([m[key] for m in seen])
+        require(torch.equal(got.view(torch.int32),
+                            eager[key].view(torch.int32)),
+                f"capture while serving: per-batch {key} differs from eager")
+    require(same_state(res.extra["carry"]["states"], states),
+            "capture while serving: the final state differs from eager")
+    answered = sum(r.status == "answered" for r in reqs)
+    log(f"capture while serving: 2 chunks of {CS_CHUNK} x {B} rows and a "
+        f"last chunk of one 200-row batch, its graph captured mid-run while "
+        f"the server answered {answered} of {len(reqs)} requests; per-batch "
+        f"metrics and final state bit for bit the eager run on {smi}")
+    return {"requests": len(reqs), "answered": answered}
+
+
+def phase_serve(dev, smi):
+    """The pipelined driver against the synchronous one on VHT dense-1000
+    and CluStream d128-K256, train while serving (``train_while_serving``),
+    poison/rollback and kill/resume on the pipelined driver,
+    serve/train parity in four families, tree_route at the server's
+    shapes, and a capture while the server answers."""
+    import torch
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.ml.clustream import CluStream, CluStreamConfig
+    from repro_torch.ml.ensemble import EnsembleConfig, OzaEnsemble
+    from repro_torch.ml.vht import VHT, VHTConfig
+    from repro_torch.serving import ModelServer, ServeConfig, SnapshotPublisher
+
+    t0 = time.perf_counter()
+    out = {}
+    learner = VHT(VHTConfig(tree_config(M_ATTRS, split_delay=4)), device=dev)
+    engine = JitEngine()
+    x, y = dense_batches(dev, MAIN_BATCHES, 0)
+    chunks = ChunkedStream({"x": x, "y": y}, CS_CHUNK, device=dev)
+    rows = request_rows(dev)
+    # the drivers first: the pipelined run captures the steps on the engine
+    clean, out["vht_drivers"], names = drivers(
+        "VHT dense-1000 wok", learner, chunks, engine, smi)
+    for name in VHT_KERNELS:
+        require(name in names, f"the pipelined VHT run's trace has no {name}")
+    cc = CluStreamConfig(n_dims=128, n_micro=256, n_macro=8,
+                         period=CS_PERIOD)
+    cs_stream = ChunkedStream({"x": torch.from_numpy(blob_stream(
+        128, CS_CHUNKS * CS_CHUNK))}, CS_CHUNK, device=dev)
+    _, out["clustream_drivers"], _ = drivers(
+        "CluStream d128-K256 step", CluStream(cc, device=dev), cs_stream,
+        JitEngine(), smi)
+    tws, learned = train_while_serving(learner, serve_stream(x, y, dev),
+                                       engine, rows, smi)
+    out["train_while_serving"] = tws
+    out["rollback"] = poison_and_resume(learner, chunks, engine, clean, smi)
+    out["parity"], states = serve_train_parity(dev, smi)
+    out["tree_route_m1"] = tree_route_at_serve_shape(
+        "M = 1 on the learned dense-1000 tree",
+        tuple(learned[k][None] for k in PREDICT[:3]), rows, dev, smi)
+    out["tree_route_m1"]["launches_per_request"] = \
+        tws["tree_route_per_request"]
+    trees = states["OzaBag adwin dense-1000"]["trees"]
+    out["tree_route_m10"] = tree_route_at_serve_shape(
+        "M = 10 on OzaBag's learned trees",
+        (trees["split_attr"], trees["split_bin"], trees["children"]), rows,
+        dev, smi)
+    # OzaBag served: 64 requests in 4 full batches, one launch each
+    pub = SnapshotPublisher()
+    require(pub.publish(2, states["OzaBag adwin dense-1000"]),
+            "the OzaBag snapshot was rejected")
+    srv = ModelServer(OzaEnsemble(EnsembleConfig(tree_config(M_ATTRS),
+                                                 n_members=ENS_M), device=dev),
+                      pub, ServeConfig(**{**SERVE_CFG, "deadline_ms": 6e4}),
+                      start=False)
+    reqs = [srv.submit(r) for r in rows[:64]]
+    reset_launches()
+    while srv.poll():
+        pass
+    count = launches()["tree_route"]
+    require(all(r.status == "answered" for r in reqs) and count == 4,
+            f"OzaBag served: {count} tree_route launches for 64 requests")
+    out["tree_route_m10"]["launches_per_request"] = count / len(reqs)
+    out["capture_while_serving"] = capture_while_serving(learner, engine,
+                                                         rows, dev, smi)
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve phase: {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def kernel_selective_scan(dev):
     """selective_scan at falcon_mamba_7b's prefill shape (B = 4, S = 2048,
     dI = 8192, N = 16, float32; tests/test_kernels.py's input scales)
@@ -2222,6 +2923,7 @@ def main():
     rules = phase_rules(dev, smi)
     ens = phase_ensembles(dev, smi)
     cs = phase_clustream(dev, smi)
+    sv = phase_serve(dev, smi)
     lm = phase_lm(dev, smi)
 
     names = ("tree_route", "vht_stats", "split_gain", "rule_stats",
@@ -2269,6 +2971,7 @@ def main():
     log(f"rules: {json.dumps(rules)}")
     log(f"ensembles: {json.dumps(ens)}")
     log(f"clustream: {json.dumps(cs)}")
+    log(f"serve: {json.dumps(sv)}")
     log(f"lm: {json.dumps(lm)}")
     log(f"ptxas: {json.dumps(ptxas)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -44,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import gc
 import weakref
 
 import torch
@@ -275,6 +276,22 @@ class _Step:
         return self.state, graph.out
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """The cyclic garbage collector off for a capture (``torch.cuda.graph``
+    collects once before it begins).  A collection in the capturing thread
+    would run the finalizers of the graphs it frees (an engine and its
+    steps form a cycle), and a graph reset during a capture invalidates
+    the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _Graph:
     """One capture of a step, for one payload signature: its payload in
     static buffers of its own, its state in the step's."""
@@ -299,8 +316,9 @@ class _Graph:
             # stream's producer staging the next chunk: pinned memory, a
             # copy on its own stream) does not invalidate this capture;
             # a sync in this thread still does
-            with torch.cuda.graph(self.graph, stream=side,
-                                  capture_error_mode="thread_local"):
+            with _collector_paused(), torch.cuda.graph(
+                    self.graph, stream=side,
+                    capture_error_mode="thread_local"):
                 new, self.out = step.fn(step.state, *self.payload)
                 step.copy_back(new)
         weakref.finalize(self, _release, self.graph, device,

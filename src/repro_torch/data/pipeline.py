@@ -14,6 +14,7 @@ stream waits on before it reads the chunk.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -29,9 +30,10 @@ from repro_torch.device import resolve_device
 
 
 PREFETCH = 2            # chunks a producer stages ahead of the consumer
-RETRIES = 3             # retries of a chunk's fetch before it is lost
-BACKOFF_S = 0.05        # the first retry's backoff; it doubles per attempt
+RETRIES = 3             # default retries of a chunk's fetch before it is lost
+BACKOFF_S = 0.05        # default first retry's backoff; doubles per attempt
 BACKOFF_CAP_S = 5.0     # ... up to this
+RETRY_EVENTS_CAP = 256  # default retry events kept (the count stays exact)
 
 
 class StreamPipeline:
@@ -196,24 +198,43 @@ class ChunkedStream:
     beginning at chunk k (mid-stream resume).  Each ``__iter__`` starts a
     producer, which the iterator stops and joins when it ends, is closed
     or is dropped.  A fetch that raises one of ``TRANSIENT`` is retried up
-    to ``RETRIES`` times, after a backoff doubling from ``BACKOFF_S`` up to
-    ``BACKOFF_CAP_S`` with a jitter that is the same for the same (chunk,
+    to ``retries`` times (default ``RETRIES``), after a backoff doubling
+    from ``backoff`` (``BACKOFF_S``) up to ``backoff_cap``
+    (``BACKOFF_CAP_S``) with a jitter that is the same for the same (chunk,
     attempt); then the chunk is lost (``StreamSourceError``).  Each retry
-    is logged in ``retry_events`` as (chunk, attempt, slept s, error), one
-    list that ``starting_at`` views share.
+    is logged in ``retry_events`` as (chunk, attempt, slept s, error): a
+    ring buffer of the newest ``retry_events_cap`` events, while
+    ``retry_count`` stays exact and ``retry_events_dropped`` counts the
+    events pushed out.  ``starting_at`` views share the buffer and both
+    counts.
     """
 
     def __init__(self, payloads=None, chunk_len: int = 0, *,
                  fetch: Callable[[int], Any] | None = None,
                  n_chunks: int | None = None, device=None,
-                 to_device: bool = True):
+                 to_device: bool = True, retries: int | None = None,
+                 backoff: float | None = None,
+                 backoff_cap: float | None = None,
+                 retry_events_cap: int = RETRY_EVENTS_CAP):
         if chunk_len < 1:
             raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+        if retry_events_cap < 1:
+            raise ValueError(
+                f"retry_events_cap must be >= 1, got {retry_events_cap}")
         self.chunk_len = int(chunk_len)
         self.start_chunk = 0
         self.device = device
         self.to_device = to_device
-        self.retry_events: list = []
+        self.retries = max(0, int(RETRIES if retries is None else retries))
+        self.backoff = float(BACKOFF_S if backoff is None else backoff)
+        self.backoff_cap = float(BACKOFF_CAP_S if backoff_cap is None
+                                 else backoff_cap)
+        self.retry_events: collections.deque = collections.deque(
+            maxlen=int(retry_events_cap))
+        # one cell and one lock that starting_at views share with the
+        # stream, so that the append and both counts move together
+        self._retry_stats = {"count": 0, "dropped": 0}
+        self._retry_lock = threading.Lock()
         if fetch is not None:
             if n_chunks is None:
                 raise ValueError("from_fn streams need n_chunks")
@@ -256,13 +277,19 @@ class ChunkedStream:
                 return self._fetch(i)
             except TRANSIENT as e:
                 attempt += 1
-                if attempt > RETRIES:
+                if attempt > self.retries:
                     raise StreamSourceError(i, attempt, e) from e
-                delay = min(BACKOFF_S * (2 ** (attempt - 1)), BACKOFF_CAP_S)
+                delay = min(self.backoff * (2 ** (attempt - 1)),
+                            self.backoff_cap)
                 rng = np.random.default_rng((int(i) + 1) * 1_000_003
                                             + attempt)
                 delay *= float(rng.uniform(0.5, 1.0))
-                self.retry_events.append((int(i), attempt, delay, repr(e)))
+                with self._retry_lock:
+                    if len(self.retry_events) == self.retry_events.maxlen:
+                        self._retry_stats["dropped"] += 1
+                    self.retry_events.append((int(i), attempt, delay,
+                                              repr(e)))
+                    self._retry_stats["count"] += 1
                 time.sleep(delay)
 
     def _produce(self, q, stop, device):
@@ -294,6 +321,11 @@ class ChunkedStream:
 
     def __iter__(self):
         device = resolve_device(self.device) if self.to_device else None
+        if device is not None and device.type == "cuda" \
+                and device.index is None:
+            # "cuda" names the current card: a payload already there is
+            # taken as it is, not staged through pinned memory
+            device = torch.device("cuda", torch.cuda.current_device())
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
         t = threading.Thread(target=self._produce, args=(q, stop, device),
@@ -310,6 +342,19 @@ class ChunkedStream:
         finally:
             stop.set()
             t.join()
+
+    @property
+    def retry_count(self) -> int:
+        """Retried fetches, all of them (the ring buffer keeps the newest
+        ``retry_events_cap``)."""
+        with self._retry_lock:
+            return self._retry_stats["count"]
+
+    @property
+    def retry_events_dropped(self) -> int:
+        """Retry events pushed out of the ring buffer."""
+        with self._retry_lock:
+            return self._retry_stats["dropped"]
 
     def __len__(self):
         return self.n_chunks - self.start_chunk

@@ -502,7 +502,8 @@ def test_run_stream_chunk_knobs():
     """on_chunk sees each chunk (index, length, padding) after its
     boundary; collect_outputs=False keeps no outputs; the monolithic run
     refuses both knobs; the evaluation takes no engine (JitEngine is its
-    one) and none of the options the port does not have."""
+    one) and none of the options the port does not have (the supervisor
+    and distribution's)."""
     eng, learner = JitEngine(), LEARNERS["amrules"]
     seen, tally = [], MetricAccumulator()
 
@@ -527,8 +528,9 @@ def test_run_stream_chunk_knobs():
     stream = ChunkedStream(_tpayload("amrules", 2), 2, device=CPU)
     with pytest.raises(TypeError):
         ChunkedPrequentialEvaluation(learner, stream, engine=LocalEngine())
-    with pytest.raises(TypeError):
-        ChunkedPrequentialEvaluation(learner, stream, pipeline=True)
+    for kw in ({"supervisor": object()}, {"model_parallel": 2}):
+        with pytest.raises(TypeError, match="items 6 and 10"):
+            ChunkedPrequentialEvaluation(learner, stream, **kw)
 
 
 def test_stream_pipeline_materializes_its_batches():

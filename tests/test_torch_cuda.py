@@ -12,7 +12,12 @@ the rule_stats kernel's wide form (segment_sum with up to 4096 columns:
 CluStream's CF scatter) against its plain version, CluStream d32-K100 on
 the chunked runtime eager, compiled and plain alike, a checkpointed
 kill/resume on the card, and a capture that another thread's staging of
-chunks does not invalidate.  Every test here is marked
+chunks does not invalidate; train while serving: the pipelined driver
+waiting on events (no device-wide wait off the main thread) while a
+ModelServer answers, a snapshot unchanged across compiled chunks, a
+short batch's capture while the server answers, the predict fast path
+against the plain one, and a capture that survives the garbage collector
+freeing another graph.  Every test here is marked
 ``cuda`` and skips without a CUDA device; the file imports nothing of JAX,
 so it runs where JAX is not installed:
 
@@ -1084,3 +1089,221 @@ def test_a_capture_survives_another_thread_staging_chunks(cuda):
     finally:
         stop.set()
         producer.join()
+
+
+# --------------------------------------------------- train while serving
+
+def _vht_chunked(cuda, n_chunks, chunk_len=4, m=200, short=False):
+    """A dense-m VHT stream of n_chunks chunks on the card; with ``short``
+    one more chunk holding one batch of 200 of its 512 rows."""
+    from repro_torch.data.pipeline import ChunkedStream
+    batches = _vht_batches(cuda, m, n_chunks * chunk_len + short)
+    xs = torch.stack([x for x, _ in batches])
+    ys = torch.stack([y for _, y in batches])
+    parts = [{"x": xs[i:i + chunk_len], "y": ys[i:i + chunk_len]}
+             for i in range(0, n_chunks * chunk_len, chunk_len)]
+    if short:
+        parts.append({"x": xs[-1:, :200].contiguous(),
+                      "y": ys[-1:, :200].contiguous()})
+    return ChunkedStream.from_fn(lambda i: parts[i], len(parts), chunk_len,
+                                 device=cuda), xs[0].cpu().numpy()
+
+
+def _vht(cuda, m=200):
+    from repro_torch.ml.htree import TreeConfig
+    from repro_torch.ml.vht import VHT, VHTConfig
+    return VHT(VHTConfig(TreeConfig(n_attrs=m, n_min=200, split_delay=4)),
+               device=cuda)
+
+
+def _play(srv, rows, until, limit=4000):
+    """Requests at the server, one a millisecond at most, until until()."""
+    import time
+    reqs = []
+    while not until() and len(reqs) < limit:
+        reqs.append(srv.submit(rows[len(reqs) % len(rows)]))
+        time.sleep(0.001)
+    return reqs
+
+
+@pytest.mark.cuda
+def test_pipelined_driver_waits_on_events_not_the_device(cuda, tmp_path,
+                                                         monkeypatch):
+    """A pipelined run with a checkpoint, a publisher and on_chunk while a
+    ModelServer answers: only the main thread calls torch.cuda.synchronize
+    (the capture, the first chunk's timestamp and the final fence); the
+    drain thread waits on each chunk's event; the server answers; the run
+    equals the synchronous driver's, bit for bit."""
+    import concurrent.futures
+    import threading
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.evaluation import ChunkedPrequentialEvaluation
+    from repro_torch.serving import (ModelServer, ServeConfig,
+                                     SnapshotPublisher)
+
+    stream, rows = _vht_chunked(cuda, 6)
+    learner = _vht(cuda)
+    want = ChunkedPrequentialEvaluation(learner, stream,
+                                        pipeline=False).run()
+    device_waits, event_waits = [], []
+    real_sync, real_wait = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def sync(*a, **k):
+        device_waits.append(threading.current_thread().name)
+        return real_sync(*a, **k)
+
+    def wait(self):
+        event_waits.append(threading.current_thread().name)
+        return real_wait(self)
+
+    pub = SnapshotPublisher()
+    assert pub.publish(-1, learner.init())
+    srv = ModelServer(learner, pub, ServeConfig(max_batch=16,
+                                                deadline_ms=60_000.0))
+    seen = []
+    ev = ChunkedPrequentialEvaluation(
+        learner, stream, checkpoint=CheckpointManager(tmp_path, keep=2),
+        checkpoint_every=2, publisher=pub,
+        on_chunk=lambda outs, chunk, carry: seen.append(chunk.index))
+    monkeypatch.setattr(torch.cuda, "synchronize", sync)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", wait)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_play, srv, rows, lambda: False, 50)
+        got = ev.run()
+        reqs = fut.result(timeout=60)
+    srv.stop()
+    monkeypatch.undo()
+    assert set(device_waits) == {threading.main_thread().name}
+    drain_waits = [n for n in event_waits if n.startswith("chunk-drain")]
+    assert len(drain_waits) >= 6 and seen == list(range(6))
+    assert all(r.result(timeout=30).status == "answered" for r in reqs)
+    assert pub.published == 7
+    assert got.curve == want.curve and got.metric == want.metric
+    _assert_bits_equal(got.extra["carry"]["states"],
+                       want.extra["carry"]["states"])
+
+
+@pytest.mark.cuda
+def test_snapshot_unchanged_across_two_compiled_chunks(cuda):
+    """A snapshot of the compiled step's own state buffers (which every
+    replay advances in place) stays as it was published while two more
+    chunks of replays run."""
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.serving import SnapshotPublisher, model_state_of
+
+    learner, eng = _vht(cuda), JitEngine()
+    batches = [{"x": x, "y": y} for x, y in _vht_batches(cuda, 200, 12)]
+    carry = eng.init(learner)
+    for p in batches[:4]:
+        carry, _ = eng.step(learner, carry, p)
+    live = model_state_of(carry)
+    pub = SnapshotPublisher()
+    assert pub.publish(0, live)
+    want = {k: v.clone() for k, v in live.items()}
+    for p in batches[4:]:
+        carry, _ = eng.step(learner, carry, p)
+    stats = model_state_of(carry)["stats"]
+    assert stats.data_ptr() == live["stats"].data_ptr()
+    assert not torch.equal(live["stats"], want["stats"])   # advanced in place
+    _assert_bits_equal(pub.current().state, want)
+
+
+@pytest.mark.cuda
+def test_short_batch_capture_while_a_model_server_answers(cuda):
+    """A run whose last chunk holds a 200-row batch captures that batch's
+    step mid-run while a ModelServer answers requests on its own stream:
+    no capture error, and the run equals the eager run (LocalEngine's
+    ChunkedStream loop), per batch and in its final state."""
+    import concurrent.futures
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.core.evaluation import (ChunkedPrequentialEvaluation,
+                                             stack_outputs)
+    from repro_torch.serving import (ModelServer, ServeConfig,
+                                     SnapshotPublisher)
+
+    stream, rows = _vht_chunked(cuda, 3, short=True)
+    learner = _vht(cuda)
+    pub = SnapshotPublisher()
+    assert pub.publish(-1, learner.init())
+    srv = ModelServer(learner, pub, ServeConfig(max_batch=16,
+                                                deadline_ms=60_000.0))
+    metrics = []
+    ev = ChunkedPrequentialEvaluation(
+        learner, stream, publisher=pub,
+        on_chunk=lambda outs, chunk, carry: metrics.append(outs["metrics"]))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(ev.run)
+        reqs = _play(srv, rows, fut.done)
+        got = fut.result(timeout=300)
+    srv.stop()
+    assert reqs and all(r.result(timeout=30).status == "answered"
+                        for r in reqs)
+    loc = LocalEngine()
+    states, eager = loc.run_stream(learner, loc.init(learner), stream)
+    eager = stack_outputs(eager)["metrics"]
+    for key in ("correct", "seen", "dropped", "n_nodes"):
+        assert torch.equal(_bits(torch.cat([m[key] for m in metrics])),
+                           _bits(eager[key])), key
+    assert float(eager["seen"][-1]) == 200.0
+    _assert_bits_equal(got.extra["carry"]["states"], states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["vht", "ozabag"])
+def test_predict_through_the_kernel_equals_plain(cuda, kind):
+    """The serving fast path (tree_route, one launch a call, M = 1 or 10)
+    against reference_predict (the plain router) on learned trees at the
+    server's batch of 16 and at 512 rows: bit for bit."""
+    from repro_torch.core.evaluation import PrequentialEvaluation
+    from repro_torch.serving import make_predict_fn, reference_predict
+
+    learner = _vht(cuda) if kind == "vht" else _ensemble(cuda, "ozabag")
+    batches = _vht_batches(cuda, 200, 20)
+    state = PrequentialEvaluation(learner, batches[:-1]).run().extra["state"]
+    trees = state["trees"] if kind == "ozabag" else state
+    assert int(trees["n_nodes"].max()) > 1
+    fn = make_predict_fn(learner)
+    for x in (batches[-1][0][:16], batches[-1][0]):
+        reset_launches()
+        got = fn(state, x)
+        assert launches()["tree_route"] == 1
+        assert torch.equal(got, reference_predict(learner, state, x))
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_the_collector_freeing_another_graph(cuda):
+    """An engine whose compiled steps sit in a reference cycle becomes
+    garbage in the middle of another step's capture, which then makes
+    enough objects for a full collection to fall due: a collection there
+    would reset the freed graphs inside the capture and invalidate it."""
+    import gc
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.core.engines import JitEngine
+
+    learner = _vht(cuda)
+    batches = [{"x": x, "y": y} for x, y in _vht_batches(cuda, 200, 3)]
+    holder, kept = [], []
+
+    def fn(s, x):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()              # the engine is garbage from here
+            # long-lived objects past a quarter of the oldest generation:
+            # a full collection falls due
+            n = len(gc.get_objects(generation=2))
+            kept.append([[i] for i in range(n)])
+        return {"a": s["a"] + x}, {}
+
+    for _ in range(2):
+        eng = JitEngine()
+        carry = eng.init(learner)
+        for p in batches:
+            carry, _ = eng.step(learner, carry, p)
+        holder.append(eng)
+        del eng, carry
+        zeros = {"a": torch.zeros(1024, device=cuda)}
+        ones = torch.ones(1024, device=cuda)
+        step = compile_step(fn, zeros, ones)
+        assert not holder and kept
+        kept.clear()
+        state, _ = step(zeros, ones)
+        assert torch.equal(state["a"], ones)
