@@ -118,10 +118,37 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  16, M = 1 and 10, timed; and a short last batch's step
                  captured while the server answers, the run bit for bit the
                  eager one.
-  11. result  -- one JSON line of per-kernel numbers (rule_stats as
+  11. fleet   -- multi-tenant learner fleets (src/repro_torch/ml/fleet.py)
+                 after the serve phase: benchmarks/fleet_benchmarks.py's
+                 fleet.vht-f1000 arm in its full mode (1000 VHT tenants,
+                 TreeConfig(n_attrs=8, n_bins=4, max_nodes=31, n_min=16,
+                 delta=0.05, tau=0.1), RandomTreeGenerator(n_cat=4,
+                 n_num=4, depth=4, seed=3), 8 steps of 16 a tenant in
+                 chunks of 2, a checkpoint after every chunk) and 1000
+                 tenants of CluStream d32-K100 (period 32, aligned to the
+                 chunk) in step and boundary mode.  Each fleet eager,
+                 compiled and plain bit for bit alike (state rows and
+                 [steps, F] metric columns); 16 tenants spread over the
+                 fleet each equal to their learner alone (CluStream: CF
+                 leaves bit for bit, macro rtol 1e-6, ssq within the
+                 rounding bound of its expanded distances, a planted stale-
+                 macro ssq refused by that bound); the VHT fleet and the
+                 boundary-mode CluStream fleet killed after their first
+                 chunk and resumed, bit for bit; kernel launches per step
+                 the same at 100 and at
+                 1000 tenants; the VHT fleet's predict at the server's
+                 batch of 16 mixed tenants (one tree_route_rows launch)
+                 equal to reference_predict, and a ModelServer answering
+                 by tenant; tree_route's batch-per-tree and row forms,
+                 segment_sum's tenant form and vht_stats with the tenant
+                 axis folded into its leaves, each exact against its plain
+                 version on random inputs and the path's, timed beside
+                 its bound.  Prints µs per fleet step (eager, compiled)
+                 and instances/s.
+  12. result  -- one JSON line of per-kernel numbers (rule_stats as
                  segment_sum on its own line, timed on the CluStream CF
-                 scatter), then, as the last line,
-                 {"ok": true, "device": {...}}.
+                 scatter; the fleet forms on lines of their own), then, as
+                 the last line, {"ok": true, "device": {...}}.
 
 Phases 4 to 9 also run each path compiled (src/repro_torch/core/
 compiled.py: each step one captured CUDA graph, its lax.cond gates
@@ -321,9 +348,9 @@ def route_steps(sa, sb, ch, xbin, max_depth):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the VHT, ensemble, AMRules, CluStream and LM paths through the
-    plain PyTorch versions of the six kernels and of split_poisson, on the
-    card, for a reference run."""
+    """Route the VHT, ensemble, AMRules, CluStream, fleet and LM paths
+    through the plain PyTorch versions of the six kernels, of their fleet
+    forms and of split_poisson, on the card, for a reference run."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
@@ -331,9 +358,13 @@ def plain_kernels():
     from repro_torch.kernels.split_poisson.ref import split_poisson_ref
     from repro_torch.kernels.tree_route.ref import tree_route_ref
     from repro_torch.kernels.vht_stats.ref import stats_update_ref
-    from repro_torch.kernels.rule_stats.ops import batch_sum
+    from repro_torch.kernels.rule_stats.ops import batch_sum, batch_sum_tenant
+    from repro_torch.kernels.rule_stats.ref import segment_sum_tenant_ref
+    from repro_torch.kernels.tree_route.ref import (tree_route_batched_ref,
+                                                    tree_route_rows_ref)
     from repro_torch.ml import amrules, clustream, ensemble, htree, vht
     from repro_torch.models import layers
+    from repro_torch.serving import predict
 
     def route_plain(sa, sb, ch, xbin, *, max_depth):
         if sa.dim() == 1:
@@ -341,11 +372,19 @@ def plain_kernels():
                                   max_depth)[0]
         return tree_route_ref(sa, sb, ch, xbin, max_depth)
 
+    def batched_plain(sa, sb, ch, xbin, *, max_depth):
+        return tree_route_batched_ref(sa, sb, ch, xbin, max_depth)
+
+    def rows_plain(sa, sb, ch, xbin, member, *, max_depth):
+        return tree_route_rows_ref(sa, sb, ch, xbin, member, max_depth)
+
     saved = (htree.tree_route, htree.stats_update, htree.split_gain,
              vht.stats_update, amrules.rule_stats_scatter,
              amrules.segment_sum, layers.selective_scan,
              layers.flash_attention, ensemble.split_poisson,
-             clustream.segment_sum, clustream.batch_sum)
+             clustream.segment_sum, clustream.batch_sum,
+             htree.tree_route_batched, clustream.segment_sum_tenant,
+             clustream.batch_sum_tenant, predict.tree_route_rows)
     htree.tree_route, htree.split_gain = route_plain, split_gain_ref
     ensemble.split_poisson = split_poisson_ref
     htree.stats_update = vht.stats_update = stats_update_ref
@@ -355,6 +394,11 @@ def plain_kernels():
                                             scatter=rule_stats_scatter_ref)
     layers.selective_scan = selective_scan_ref
     layers.flash_attention = flash_attention_ref
+    htree.tree_route_batched = batched_plain
+    clustream.segment_sum_tenant = segment_sum_tenant_ref
+    clustream.batch_sum_tenant = functools.partial(
+        batch_sum_tenant, scatter=segment_sum_tenant_ref)
+    predict.tree_route_rows = rows_plain
     try:
         yield
     finally:
@@ -362,7 +406,9 @@ def plain_kernels():
          vht.stats_update, amrules.rule_stats_scatter,
          amrules.segment_sum, layers.selective_scan,
          layers.flash_attention, ensemble.split_poisson,
-         clustream.segment_sum, clustream.batch_sum) = saved
+         clustream.segment_sum, clustream.batch_sum,
+         htree.tree_route_batched, clustream.segment_sum_tenant,
+         clustream.batch_sum_tenant, predict.tree_route_rows) = saved
 
 
 class Recording:
@@ -833,8 +879,8 @@ def profile_steps(learner, state, batches, kernel=None, order=()):
         m = re.search(r"(\w+_(?:kernel|wgmma|conditions)\w*(?:<[^(]*>)?)\(",
                       key)
         if m and m.group(1).startswith(
-                (*VHT_KERNELS, "rule_stats", *LM_ARCHS.values(),
-                 "split_poisson", "set_conditions")):
+                (*VHT_KERNELS, "rule_stats", "segment_sum",
+                 *LM_ARCHS.values(), "split_poisson", "set_conditions")):
             ours[m.group(1)] = {"us_per_step": us / n, "per_step": count / n}
     log("  the port's kernels per step: " + ", ".join(
         f"{k} {v['us_per_step']:.2f} us ({v['per_step']:.2f} launches)"
@@ -2585,6 +2631,651 @@ def phase_serve(dev, smi):
     return out
 
 
+# ------------------------------------------------------------ fleet phase
+
+# benchmarks/fleet_benchmarks.py's fleet.vht-f1000 arm in its full mode
+# (its TreeConfig at :46-48, the arm at :77-85): FLEET_F tenants of VHT,
+# FLEET_T steps of FLEET_B instances a tenant in chunks of FLEET_CHUNK,
+# a checkpoint after every chunk; and FLEET_F tenants of CluStream
+# d32-K100 (benchmarks/clustream_benchmarks.py:75) at the same batch and
+# length, step and boundary mode, the period aligned to the chunk so the
+# macro phase fires.  Launches per step are counted again at FLEET_SMALL
+# tenants; FLEET_ALONE tenants spread over the fleet also run alone.
+FLEET_F, FLEET_SMALL, FLEET_ALONE = 1000, 100, 16
+FLEET_T, FLEET_B, FLEET_CHUNK, FLEET_BINS = 8, 16, 2, 4
+FLEET_PERIOD = FLEET_CHUNK * FLEET_B
+
+
+def fleet_tree_config():
+    from repro_torch.ml.htree import TreeConfig
+    return TreeConfig(n_attrs=8, n_bins=FLEET_BINS, n_classes=2,
+                      max_nodes=31, n_min=16, delta=0.05, tau=0.1)
+
+
+def fleet_vht_payload(dev):
+    """[T, F, B, 8] binned attributes and [T, F, B] labels of
+    RandomTreeGenerator(n_cat=4, n_num=4, depth=4, seed=3), the JAX
+    benchmark's generator, drawn on the card in one pass (seed 11): each
+    tenant's rows are draws of their own."""
+    import torch
+    from repro_torch.data.generators import RandomTreeGenerator, bin_numeric
+    gen = RandomTreeGenerator(n_cat=4, n_num=4, depth=4, seed=3, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, y = gen.sample(g, FLEET_T * FLEET_F * FLEET_B)
+    return {"x": bin_numeric(x, FLEET_BINS).reshape(
+                FLEET_T, FLEET_F, FLEET_B, 8),
+            "y": y.reshape(FLEET_T, FLEET_F, FLEET_B)}
+
+
+def fleet_blob_payload(d, seed=0, n_blobs=8):
+    """The blob stream of benchmarks/clustream_benchmarks.py per tenant,
+    drawn with numpy from the seed: [T, F, B, d] float32 points 0.05
+    (normal) around 8 centers of the tenant's own, uniform in [0, 1)^d."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(size=(FLEET_F, n_blobs, d))
+    c = rng.integers(0, n_blobs, (FLEET_T, FLEET_F, FLEET_B))
+    x = (centers[np.arange(FLEET_F)[None, :, None], c]
+         + 0.05 * rng.standard_normal((FLEET_T, FLEET_F, FLEET_B, d)))
+    return {"x": torch.from_numpy(x.astype(np.float32))}
+
+
+def fleet_route_steps(sa, sb, ch, xbin, tree, max_depth):
+    """Inner nodes passed by each row of xbin [R, m] through tree[r] of
+    the tables: the xbin reads and table entries routing needs."""
+    import torch
+    node = torch.zeros_like(tree)
+    steps = torch.zeros_like(tree)
+    rows = torch.arange(xbin.shape[0], device=xbin.device)
+    for _ in range(max_depth):
+        attr = sa[tree, node].long()
+        inner = attr >= 0
+        v = xbin[rows, attr.clamp(min=0)]
+        nxt = ch[tree, node, (v > sb[tree, node]).long()].long()
+        node = torch.where(inner, nxt, node)
+        steps += inner.long()
+    return int(steps.sum())
+
+
+def fleet_launches_per_step(count, n_steps):
+    return {k: v / n_steps for k, v in sorted(count.items()) if v}
+
+
+def run_fleet(what, fleet, payload, dev, smi, checkpoint=False):
+    """One fleet over the payload's T steps in chunks of FLEET_CHUNK:
+    eagerly with the kernels (LocalEngine's chunked loop, launches
+    counted, the counts set to 0 just before), compiled (the chunked
+    evaluation on JitEngine, its captured steps; timed on a second run),
+    and eagerly with the plain versions.  The eager and the plain runs'
+    per-step metric columns and final state bit for bit alike, and the
+    compiled run's.  With ``checkpoint`` the compiled run saves after
+    every chunk, and a run killed after its first chunk and resumed must
+    end as it did.  Returns (numbers, the eager run's fleet state and
+    metrics)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import JitEngine, LocalEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.kernels import launches, reset_launches
+
+    on_card = payload["x"].is_cuda
+    stream = (ChunkedStream(payload, FLEET_CHUNK, to_device=False) if on_card
+              else ChunkedStream(payload, FLEET_CHUNK, device=dev))
+    F = fleet.n_tenants
+    n_inst = FLEET_T * F * FLEET_B
+    loc = LocalEngine()
+    init = loc.init(fleet, PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    reset_launches()
+    states, eager = loc.run_stream(fleet, init, stream)
+    torch.cuda.synchronize()
+    count = {k: v for k, v in launches().items() if v}
+    # timed again, warm: the first run also pays the allocator's first
+    # blocks at the fleet's sizes
+    t0 = time.perf_counter()
+    again, _ = loc.run_stream(fleet, init, stream)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    require(same_state(again, states), f"{what}: a second eager run "
+            "differs from the first")
+    eager = stack_outputs(eager)["metrics"]
+    state = states["learnerfleet"]
+    out = {"F": F, "launches": count,
+           "launches_per_step": fleet_launches_per_step(count, FLEET_T),
+           "eager_us_per_step": 1e6 * eager_s / FLEET_T}
+
+    # compiled: a first run captures the steps, the second is timed
+    eng = JitEngine()
+    chunks = []
+    first = evaluation(fleet, stream, engine=eng, on_chunk=lambda o, c, k:
+                       chunks.append(o["metrics"])).run()
+    compiled = {k: torch.cat([m[k] for m in chunks]) for k in eager}
+    for k in eager:
+        require(same_state(compiled[k], eager[k]),
+                f"{what}: the compiled run's {k} columns differ from the "
+                "eager run's")
+    require(same_state(first.extra["carry"]["states"], states),
+            f"{what}: the compiled run's final state differs from the "
+            "eager run's")
+    timed_run = evaluation(fleet, stream, engine=eng).run()
+    us_c = 1e6 * F * FLEET_B / timed_run.throughput
+    out.update(compiled_us_per_step=us_c,
+               instances_per_s=timed_run.throughput,
+               eager_instances_per_s=n_inst / eager_s)
+    require(np.array_equal(np.asarray(timed_run.metric),
+                           np.asarray(first.metric)),
+            f"{what}: a second compiled run's metric columns differ")
+
+    with plain_kernels():
+        reset_launches()
+        plain_states, plain = loc.run_stream(fleet, init, stream)
+        require(sum(launches().values()) == 0,
+                f"{what}: the plain run launched a kernel")
+    plain = stack_outputs(plain)["metrics"]
+    for k in eager:
+        require(same_state(plain[k], eager[k]),
+                f"{what}: the plain run's {k} columns differ from the eager "
+                "run's")
+    require(same_state(plain_states, states),
+            f"{what}: the plain run's final state differs from the eager "
+            "run's")
+    require(torch.equal(state["cursor"].cpu(),
+                        torch.full((F,), FLEET_T, dtype=torch.int32)),
+            f"{what}: cursors {state['cursor']}")
+    if checkpoint:
+        out["kill_resume"] = fleet_kill_resume(what, fleet, stream, eng,
+                                               first)
+    out["profile"] = fleet_profile(what, fleet, state, payload, dev)
+    log(f"{what}: F={F} x {FLEET_T} steps of {FLEET_B} ({FLEET_T // FLEET_CHUNK}"
+        f" chunks of {FLEET_CHUNK}): {out['eager_us_per_step']:.1f} us per "
+        f"fleet step eager, {us_c:.1f} compiled ({timed_run.throughput:.0f} "
+        f"instances/s compiled, {n_inst / eager_s:.0f} eager); launches per "
+        f"step {out['launches_per_step']}; eager, compiled and plain bit for "
+        f"bit alike on {smi}")
+    return out, state, eager
+
+
+def fleet_profile(what, fleet, state, payload, dev):
+    """The fleet's step captured on the final state and replayed over the
+    payload's T batches twice under torch.profiler: device busy µs per
+    step, the busy share and the kernels' device µs (``profile_steps``),
+    the numbers the host clock's spread between runs does not move."""
+    from repro_torch.core.compiled import compile_step
+    from repro_torch.core.pytree import tree_clone
+    batches = [(payload["x"][t].to(dev),
+                payload["y"][t].to(dev) if "y" in payload else None)
+               for t in range(FLEET_T)]
+    args = [a for a in batches[0] if a is not None]
+    captured = compile_step(fleet.step, tree_clone(state), *args)
+    stepper = XStep(captured) if "y" not in payload else types.SimpleNamespace(
+        step=captured)
+    log(f"{what}: the captured fleet step replayed:")
+    return profile_steps(stepper, tree_clone(state), batches * 2)
+
+
+def fleet_kill_resume(what, fleet, stream, eng, want):
+    """The compiled run with a checkpoint after every chunk, killed after
+    its first chunk (the later checkpoints gone) and resumed: metric
+    columns, curve and final carry bit for bit the uninterrupted run's."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    ckpt = ROOT / "build" / "fleet_checkpoints"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    full = evaluation(fleet, stream, engine=eng,
+                      checkpoint=CheckpointManager(ckpt, keep=0),
+                      checkpoint_every=1).run(resume=False)
+    mgr = CheckpointManager(ckpt, keep=0)
+    steps = mgr.all_steps()
+    for s in steps:
+        if s > 1:
+            shutil.rmtree(ckpt / f"step_{s:010d}")
+    ev = evaluation(fleet, stream, engine=eng, checkpoint=mgr,
+                    checkpoint_every=1)
+    got = ev.run(resume=True)
+    total = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    require(ev.report["events"] == [("resume", 1)],
+            f"{what} kill/resume: resumed at {ev.report['events']}")
+    for r, name in ((full, "the checkpointed run"), (got, "the resumed run")):
+        require(np.array_equal(np.asarray(r.metric), np.asarray(want.metric))
+                and np.array_equal(np.asarray(r.curve),
+                                   np.asarray(want.curve)),
+                f"{what} kill/resume: {name}'s metric columns differ")
+        require(same_state(r.extra["carry"]["states"],
+                           want.extra["carry"]["states"]),
+                f"{what} kill/resume: {name}'s final carry differs")
+    log(f"{what} kill/resume: checkpoints after chunks "
+        f"{[s - 1 for s in steps]}, killed after chunk 0, resumed for "
+        f"{got.extra['chunks']} chunks: metric columns, curve and carry bit "
+        f"for bit ({total:.1f} s for both runs)")
+    return {"checkpoints": steps, "resumed_chunks": got.extra["chunks"],
+            "s": total}
+
+
+def fleet_alone(what, fleet, payload, state, metrics, dev, exact):
+    """FLEET_ALONE tenants spread over the fleet, each its learner alone
+    on its own stream from its own init: its row and metric columns equal
+    (``exact``: bit for bit; else CluStream's, whose distances come from
+    float32 products, batched over the tenants in the fleet and single
+    alone, which round otherwise: CF leaves, seen and n_active bit for
+    bit, macro centroids rtol 1e-6, and each batch's ssq within the
+    rounding bound of its expanded distances |x|^2 + |c|^2 - 2 x.c, d eps
+    sum_i 2 |x_i|^2 (eps = 2^-24), since near a centroid the expansion
+    cancels and its rounding dominates the small distance).  For
+    CluStream a planted fault must fail that bound in every tenant: each
+    batch's ssq from step 4 on against the macro centroids two steps
+    stale (one macro phase behind, and past the initial centroids), from
+    the learner stepped alone again."""
+    import torch
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.core.prng import PRNGKey, split
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.ml.clustream import ssq
+    learner = fleet.learner
+    keys = fleet.tenant_keys(split(PRNGKey(0, dev), 1)[0])
+    loc = LocalEngine()
+    name = next(iter(loc.init(learner, PRNGKey(0, dev))))
+    tenants = [round(i * (fleet.n_tenants - 1) / (FLEET_ALONE - 1))
+               for i in range(FLEET_ALONE)]
+    worst = worst_of_bound = 0.0
+    fault_of_bound = []
+    for f in tenants:
+        one = {k: v[:, f] for k, v in payload.items()}
+        stream = (ChunkedStream(one, FLEET_CHUNK, to_device=False)
+                  if one["x"].is_cuda else
+                  ChunkedStream(one, FLEET_CHUNK, device=dev))
+        alone, m = loc.run_stream(learner, {name: learner.init(keys[f])},
+                                  stream)
+        m = stack_outputs(m)["metrics"]
+        row = fleet.tenant_state(state, f)
+        if exact:
+            require(same_state(row, alone[name]),
+                    f"{what}: tenant {f}'s row differs from its learner "
+                    "alone")
+            for k in m:
+                require(same_state(metrics[k][:, f].contiguous(), m[k]),
+                        f"{what}: tenant {f}'s {k} column differs")
+            continue
+        for k in ("n", "ls", "ss", "lt", "st", "t", "macro_t"):
+            require(same_state(row[k], alone[name][k]),
+                    f"{what}: tenant {f}'s {k} differs from its learner "
+                    "alone")
+        torch.testing.assert_close(row["macro"], alone[name]["macro"],
+                                   rtol=1e-6, atol=1e-6)
+        xs = one["x"].to(dev)
+        tol = (xs.shape[-1] * 2.0 ** -24 * 2
+               * torch.square(xs.double()).sum((-1, -2)))
+        want = m["ssq"].double()
+        gap = (metrics["ssq"][:, f].double() - want).abs()
+        require(bool((gap <= tol).all()),
+                f"{what}: tenant {f}'s ssq column differs by {gap.tolist()}"
+                f" beyond the rounding bound {tol.tolist()}")
+        worst = max(worst, float((gap / want.abs()).max()))
+        worst_of_bound = max(worst_of_bound, float((gap / tol).max()))
+        # the planted fault: the macro centroids each step's ssq used,
+        # from the learner stepped alone, taken two steps late; from step
+        # 4 on, so that the stale centroids are learned ones, not init's
+        st, used = learner.init(keys[f]), []
+        boundary = getattr(learner, "boundary", None)
+        for t in range(FLEET_T):
+            st, _ = learner.step(st, xs[t])
+            used.append(st["macro"])
+            if boundary is not None and (t + 1) % FLEET_CHUNK == 0:
+                st = boundary(st)
+        stale = torch.stack([ssq(used[t - 2], xs[t])
+                             for t in range(4, FLEET_T)]).double()
+        fault = float(((stale - want[4:]).abs() / tol[4:]).max())
+        require(fault > 1.0,
+                f"{what}: tenant {f}'s ssq against stale macro centroids "
+                f"stays within the rounding bound ({fault:.3g} of it): the "
+                "bound cannot tell a stale macro")
+        fault_of_bound.append(fault)
+        for k in ("seen", "n_active"):
+            require(torch.equal(metrics[k][:, f], m[k]),
+                    f"{what}: tenant {f}'s {k} column differs")
+    if exact:
+        log(f"{what}: tenants {tenants} each equal their learner alone bit "
+            "for bit")
+        return {"tenants": tenants}
+    log(f"{what}: tenants {tenants} each equal their learner alone (CF "
+        f"leaves bit for bit, macro rtol 1e-6, ssq within its rounding "
+        f"bound); largest ssq gap {worst:.3g} relative, {worst_of_bound:.3g}"
+        f" of the bound; a stale-macro ssq reaches {min(fault_of_bound):.3g}"
+        f" to {max(fault_of_bound):.3g} times the bound")
+    return {"tenants": tenants, "ssq_rel_gap": worst,
+            "ssq_gap_of_bound": worst_of_bound,
+            "stale_macro_gap_of_bound": {"min": min(fault_of_bound),
+                                         "max": max(fault_of_bound)}}
+
+
+def fleet_kernel_entry(what, kt, pt, moved, ops, lt=None, **extra):
+    bound_ms, bound_by = bound(moved, ops)
+    e = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
+         "plain_call_ms": pt["call_ms"],
+         "library_ms": None if lt is None else lt["ms"],
+         "library_call_ms": None if lt is None else lt["call_ms"],
+         "bytes": moved, "ops": ops, "bound_ms": bound_ms,
+         "bound_by": bound_by, "max_abs_err": 0.0, **extra}
+    log_kernel(what, e)
+    return e
+
+
+def fleet_route_kernels(state, payload, rows, tenants, dev, smi):
+    """The two fleet forms of tree_route against their plain versions on
+    random trees and batches at the fleet's shape and on the path's
+    inputs (the learned trees; the last step's batches; the served rows),
+    exact, timed beside their bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.tree_route.ops import (tree_route_batched,
+                                                    tree_route_rows)
+    from repro_torch.kernels.tree_route.ref import (tree_route_batched_ref,
+                                                    tree_route_rows_ref)
+    tc = fleet_tree_config()
+    F, N, m, D = FLEET_F, tc.max_nodes, tc.n_attrs, tc.max_depth
+    rng = np.random.RandomState(7)
+    rand = [torch.from_numpy(a).to(dev)
+            for a in random_trees(F, N, m, FLEET_BINS, 7)]
+    rand_x = torch.from_numpy(rng.randint(0, FLEET_BINS, (F, FLEET_B, m))
+                              .astype(np.int32)).to(dev)
+    rand_t = torch.from_numpy(rng.randint(0, F, 16).astype(np.int32)).to(dev)
+    learned = [state["tenant"][k] for k in ("split_attr", "split_bin",
+                                            "children")]
+    xb = payload["x"][FLEET_T - 1].contiguous()
+    for tables, x, name in ((rand, rand_x, "random"), (learned, xb, "path")):
+        require(torch.equal(tree_route_batched(*tables, x, max_depth=D),
+                            tree_route_batched_ref(*tables, x, D)),
+                f"tree_route_batched ({name}) differs from its plain version")
+    for tables, x, t, name in ((rand, rand_x[0], rand_t, "random"),
+                               (learned, rows, tenants, "served rows")):
+        require(torch.equal(tree_route_rows(*tables, x, t, max_depth=D),
+                            tree_route_rows_ref(*tables, x, t, D)),
+                f"tree_route_rows ({name}) differs from its plain version")
+    out = {}
+    flat = xb.reshape(F * FLEET_B, m)
+    tree = torch.arange(F, device=dev).repeat_interleave(FLEET_B)
+    steps = fleet_route_steps(*learned, flat, tree, D)
+    # the tables read (4 ints a node), the xbin reads, the leaves written
+    moved = F * N * 16 + steps * 4 + F * FLEET_B * 4
+    out["tree_route_batched"] = fleet_kernel_entry(
+        "tree_route_batched", timed(lambda: tree_route_batched(
+            *learned, xb, max_depth=D)),
+        timed(lambda: tree_route_batched_ref(*learned, xb, D), n=10, reps=3),
+        moved, steps, M=F, B=FLEET_B, N=N)
+    steps = fleet_route_steps(*learned, rows, tenants.long(), D)
+    # each row's path: split attribute, bin and child of every inner node
+    # it passes, the leaf's attribute, its xbin reads; member and leaf
+    moved = steps * (12 + 4) + rows.shape[0] * (4 + 4 + 4)
+    out["tree_route_rows"] = fleet_kernel_entry(
+        "tree_route_rows", timed(lambda: tree_route_rows(
+            *learned, rows, tenants, max_depth=D)),
+        timed(lambda: tree_route_rows_ref(*learned, rows, tenants, D), n=10,
+              reps=3),
+        moved, steps, R=rows.shape[0], M=F, N=N)
+    log(f"tree_route fleet forms on {smi}: exact on random trees and on the "
+        "path's inputs")
+    return out
+
+
+def fleet_vht_stats(state, payload, dev, smi):
+    """vht_stats with the tenant axis folded into its leaf axis, as the
+    VHT fleet step launches it: stats [F * N, 8, 4, 2] and the last step's
+    F * B rows routed through the learned trees; exact against its plain
+    version, timed; its block count, 8 attributes / ja."""
+    import torch
+    from repro_torch.kernels.tree_route.ops import tree_route_batched
+    from repro_torch.kernels.vht_stats.ops import stats_update, tile_plan
+    from repro_torch.kernels.vht_stats.ref import stats_update_ref
+    tc = fleet_tree_config()
+    F, N, m, nb, Cc = FLEET_F, tc.max_nodes, tc.n_attrs, FLEET_BINS, 2
+    tables = [state["tenant"][k] for k in ("split_attr", "split_bin",
+                                           "children")]
+    xb = payload["x"][FLEET_T - 1].contiguous()
+    leaf = tree_route_batched(*tables, xb, max_depth=tc.max_depth)
+    leaf = (leaf + torch.arange(F, dtype=torch.int32, device=dev)[:, None]
+            * N).reshape(-1)
+    Bf = F * FLEET_B
+    x = xb.reshape(Bf, m)
+    y = payload["y"][FLEET_T - 1].reshape(-1).contiguous()
+    w = torch.ones(Bf, device=dev)
+    stats = state["tenant"]["stats"].reshape(F * N, m, nb, Cc).clone()
+    got = stats_update(stats.clone(), leaf, x, y, w)
+    want = stats_update_ref(stats.clone(), leaf, x, y, w)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "vht_stats folded differs from its plain "
+            "version")
+    ja, group, smem = tile_plan(F * N, Bf, nb, Cc)
+    jj = torch.arange(m, device=dev)
+    flat = (((leaf.long()[:, None] * m + jj) * nb + x.long()) * Cc
+            + y.long()[:, None]).reshape(-1)
+    vals = w[:, None].expand(Bf, m).reshape(-1).contiguous()
+    cells = int(torch.unique(flat).numel())
+    work = stats.clone()
+    e = fleet_kernel_entry(
+        "vht_stats folded", timed(lambda: stats_update(work, leaf, x, y, w)),
+        timed(lambda: stats_update_ref(work, leaf, x, y, w), n=10, reps=3),
+        Bf * 12 + Bf * m * 4 + cells * 8, Bf * m,
+        timed(lambda: work.view(-1).index_put_((flat,), vals,
+                                               accumulate=True)),
+        shape=[F * N, m, nb, Cc], rows=Bf, ja=ja, group=group, smem=smem,
+        blocks=m // ja, leaves_hit=int(torch.unique(leaf).numel()))
+    log(f"vht_stats folded [{F * N},{m},{nb},{Cc}] B={Bf}: exact; {m // ja} "
+        f"blocks (ja {ja}, {group} leaves a pass, {smem} bytes of shared "
+        f"memory), {e['leaves_hit']} leaves hit, on {smi}")
+    return e
+
+
+def fleet_segment_sum(state, payload, cc, dev, smi):
+    """segment_sum's tenant form on the CF scatter x | x^2 of the fleet's
+    last batch ([F, K + 1, 2d], B a tenant), and on random rows at that
+    shape, exact against its plain version; timed beside its bound, the
+    plain version and index_add_ on the folded segment ids (the same
+    sums in the order of its atomics)."""
+    import torch
+    from repro_torch.kernels.rule_stats.ops import segment_sum_tenant
+    from repro_torch.kernels.rule_stats.ref import segment_sum_tenant_ref
+    from repro_torch.ml import clustream as cs
+    F, K, d = FLEET_F, cc.n_micro, cc.n_dims
+    S = K + 1
+    st = state["tenant"]
+    x = payload["x"][FLEET_T - 1].to(dev)
+    d2 = cs.pairwise_d2(x, cs._centroids(st))
+    nearest = torch.argmin(d2, -1)
+    ndist = cs.sqrt(torch.gather(d2, -1, nearest[..., None])[..., 0])
+    rad = torch.gather(cs._radius(st), -1, nearest) * cc.radius_factor + 1e-6
+    seg = torch.where(ndist <= rad, nearest, K).to(torch.int32).reshape(-1)
+    vals = torch.cat([x, x * x], -1).reshape(F * FLEET_B, 2 * d)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rand_seg = torch.randint(-1, S + 1, (F * FLEET_B,), generator=g,
+                             device=dev, dtype=torch.int32)
+    rand_vals = torch.randn((F * FLEET_B, 2 * d), generator=g, device=dev)
+    zeros = torch.zeros((F, S, 2 * d), device=dev)
+    for sg, v, name in ((rand_seg, rand_vals, "random"),
+                        (seg, vals, "path")):
+        got = segment_sum_tenant(zeros.clone(), sg, v)
+        want = segment_sum_tenant_ref(zeros.clone(), sg, v)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"segment_sum_tenant ({name}) differs from its plain version")
+    work = zeros.clone()
+    folded = (seg.long().view(F, FLEET_B)
+              + torch.arange(F, device=dev)[:, None] * S).reshape(-1)
+    scratch = torch.zeros((F * S, 2 * d), device=dev)
+    # the rows and their segment ids read once, and a read and a write of
+    # each (tenant, segment) row of sums that a row hits
+    hits = int(torch.unique(folded).numel())
+    moved = vals.numel() * 4 + seg.numel() * 4 + 2 * hits * 2 * d * 4
+    e = fleet_kernel_entry(
+        "segment_sum_tenant", timed(lambda: segment_sum_tenant(work, seg,
+                                                               vals)),
+        timed(lambda: segment_sum_tenant_ref(work, seg, vals), n=10, reps=3),
+        moved, F * FLEET_B * 2 * d,
+        timed(lambda: scratch.index_add_(0, folded, vals)),
+        shape=[F, S, 2 * d], B=FLEET_B, discarded=int((seg == K).sum()),
+        segments_hit=hits)
+    log(f"segment_sum_tenant CF scatter [{F},{S},{2 * d}] B={FLEET_B} a "
+        f"tenant ({e['discarded']} of {F * FLEET_B} rows discarded, {hits} "
+        f"of {F * S} segments hit): exact on random rows and on the path's "
+        f"last batch, on {smi}")
+    return e
+
+
+def fleet_serving(fleet, state, payload, dev, smi):
+    """The VHT fleet's predict at the server's batch of 16 rows of 16
+    tenants (one tree_route_rows launch, the counts set to 0 just before)
+    against reference_predict, and a ModelServer over the fleet answering
+    64 requests of mixed tenants in 4 full batches by tenant."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import (ModelServer, ServeConfig,
+                                     SnapshotPublisher, make_predict_fn,
+                                     reference_predict)
+    nb = SERVE_CFG["max_batch"]
+    x = payload["x"][FLEET_T - 1]
+    tenants = torch.arange(0, FLEET_F, FLEET_F // nb, dtype=torch.int32,
+                           device=dev)[:nb]
+    rows = x[tenants.long(), 0].contiguous()
+    fn = make_predict_fn(fleet)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = fn(state, rows, tenants)
+    torch.cuda.synchronize()
+    count = {k: v for k, v in launches().items() if v}
+    require(count == {"tree_route_rows": 1},
+            f"fleet predict at the server's batch launched {count}")
+    want = reference_predict(fleet, state, rows, tenant=tenants)
+    require(torch.equal(got, want), "fleet predict differs from "
+            "reference_predict")
+    pub = SnapshotPublisher()
+    require(pub.publish(FLEET_T // FLEET_CHUNK - 1, state),
+            "the fleet snapshot was rejected")
+    srv = ModelServer(fleet, pub, ServeConfig(**{**SERVE_CFG,
+                                                 "deadline_ms": 6e4}),
+                      start=False)
+    rng = np.random.RandomState(5)
+    req_t = rng.randint(0, FLEET_F, 64)
+    req_x = x[torch.from_numpy(req_t).to(dev),
+              torch.from_numpy(rng.randint(0, FLEET_B, 64)).to(dev)]
+    host_x = req_x.cpu().numpy()
+    reqs = [srv.submit(host_x[i], tenant=int(req_t[i])) for i in range(64)]
+    reset_launches()
+    t0 = time.perf_counter()
+    while srv.poll():
+        pass
+    served_s = time.perf_counter() - t0
+    served = launches()["tree_route_rows"]
+    want = reference_predict(fleet, state, req_x, tenant=req_t.tolist())
+    require(all(r.status == "answered" for r in reqs) and served == 4,
+            f"fleet server: {served} tree_route_rows launches for 64 "
+            "requests")
+    require([int(r.pred) for r in reqs] == want.cpu().tolist(),
+            "fleet server: an answer differs from its tenant's model")
+    require([r.meta["tenant"] for r in reqs] == req_t.tolist(),
+            "fleet server: meta['tenant'] does not name the tenant")
+    require(srv.status()["accounting_ok"], "fleet server accounting")
+    log(f"fleet serving: predict at {nb} rows of {nb} tenants one "
+        f"tree_route_rows launch, equal to reference_predict; a ModelServer "
+        f"answered 64 requests of {len(set(req_t.tolist()))} tenants in "
+        f"{served} batches ({1e3 * served_s / served:.3f} ms a batch from "
+        f"the host), each from its tenant's model, on {smi}")
+    return {"launches": served, "requests": 64,
+            "ms_per_batch": 1e3 * served_s / served}, rows, tenants
+
+
+def phase_fleet(dev, smi):
+    """Multi-tenant learner fleets (src/repro_torch/ml/fleet.py) at the
+    JAX benchmark's fleet.vht-f1000 arm and a fleet of CluStream d32-K100:
+    each fleet eager, compiled and plain bit for bit alike; FLEET_ALONE
+    tenants each equal to their learner alone; kill/resume; launches per
+    step the same at FLEET_SMALL and FLEET_F tenants; the VHT fleet's
+    predict and a ModelServer by tenant; each fleet form of a kernel
+    against its plain version, timed."""
+    import torch
+    from repro_torch.ml import (CluStream, CluStreamConfig, LearnerFleet,
+                                VHT, VHTConfig)
+
+    t0 = time.perf_counter()
+    out = {}
+    payload = fleet_vht_payload(dev)
+    small = {k: v[:, :FLEET_SMALL].contiguous() for k, v in payload.items()}
+    vht = VHT(VHTConfig(fleet_tree_config()), device=dev)
+    fleet = LearnerFleet(vht, FLEET_F)
+    e, state, metrics = run_fleet(f"fleet VHT f{FLEET_F}", fleet, payload, dev,
+                                  smi, checkpoint=True)
+    acc = metrics["correct"].sum(0) / metrics["seen"].sum(0)
+    e["accuracy"] = {"mean": float(acc.mean()), "min": float(acc.min()),
+                     "max": float(acc.max())}
+    e["n_nodes_mean"] = float(state["tenant"]["n_nodes"].float().mean())
+    require(int(state["tenant"]["n_splits"].sum()) > 0,
+            "fleet VHT: no tenant's tree split")
+    e["alone"] = fleet_alone(f"fleet VHT f{FLEET_F}", fleet, payload, state,
+                             metrics, dev, exact=True)
+    e_small, _, _ = run_fleet(f"fleet VHT f{FLEET_SMALL}",
+                              LearnerFleet(vht, FLEET_SMALL), small, dev,
+                              smi)
+    require(e_small["launches_per_step"] == e["launches_per_step"],
+            f"fleet VHT: launches per step {e['launches_per_step']} at "
+            f"F={FLEET_F}, {e_small['launches_per_step']} at F={FLEET_SMALL}")
+    e["launches_per_step_small"] = e_small["launches_per_step"]
+    e["small_us_per_step"] = {"eager": e_small["eager_us_per_step"],
+                              "compiled": e_small["compiled_us_per_step"]}
+    out["vht"] = e
+    serve, rows, tenants = fleet_serving(fleet, state, payload, dev, smi)
+    out["serve"] = serve
+    out["kernels"] = fleet_route_kernels(state, payload, rows, tenants, dev,
+                                         smi)
+    out["kernels"]["vht_stats_folded"] = fleet_vht_stats(state, payload, dev,
+                                                         smi)
+    log(f"fleet VHT f{FLEET_F}: accuracy mean {e['accuracy']['mean']:.4f} (min "
+        f"{e['accuracy']['min']:.4f}, max {e['accuracy']['max']:.4f}), "
+        f"{e['n_nodes_mean']:.2f} nodes a tree; launches per step at "
+        f"F={FLEET_F} {e['launches_per_step']}, at F={FLEET_SMALL} "
+        f"{e_small['launches_per_step']}")
+
+    blobs = fleet_blob_payload(32)
+    small = {k: v[:, :FLEET_SMALL].contiguous() for k, v in blobs.items()}
+    for mode in ("step", "boundary"):
+        cc = CluStreamConfig(n_dims=32, n_micro=100, n_macro=8,
+                             period=FLEET_PERIOD, macro_impl=mode)
+        cs = CluStream(cc, device=dev)
+        what = f"fleet CluStream d32-K100 {mode}"
+        fleet = LearnerFleet(cs, FLEET_F)
+        e, state, metrics = run_fleet(what, fleet, blobs, dev, smi,
+                                      checkpoint=mode == "boundary")
+        require(float(state["tenant"]["macro_t"].min()) > 0,
+                f"{what}: the macro phase never ran")
+        ssq = metrics["ssq"].double()
+        require(bool(torch.isfinite(ssq).all()) and bool((ssq >= 0).all()),
+                f"{what}: ssq not finite and non-negative")
+        e["last_ssq_per_instance"] = float(ssq[-1].mean()) / FLEET_B
+        e["alone"] = fleet_alone(what, fleet, blobs, state, metrics, dev,
+                                 exact=False)
+        e_small, _, _ = run_fleet(f"{what} f{FLEET_SMALL}",
+                                  LearnerFleet(cs, FLEET_SMALL), small, dev,
+                                  smi)
+        require(e_small["launches_per_step"] == e["launches_per_step"],
+                f"{what}: launches per step {e['launches_per_step']} at "
+                f"F={FLEET_F}, {e_small['launches_per_step']} at "
+                f"F={FLEET_SMALL}")
+        e["launches_per_step_small"] = e_small["launches_per_step"]
+        e["small_us_per_step"] = {"eager": e_small["eager_us_per_step"],
+                                  "compiled": e_small["compiled_us_per_step"]}
+        out[f"clustream {mode}"] = e
+        if mode == "step":
+            out["kernels"]["segment_sum_tenant"] = fleet_segment_sum(
+                state, blobs, cc, dev, smi)
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"fleet phase: {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def kernel_selective_scan(dev):
     """selective_scan at falcon_mamba_7b's prefill shape (B = 4, S = 2048,
     dI = 8192, N = 16, float32; tests/test_kernels.py's input scales)
@@ -2924,6 +3615,7 @@ def main():
     ens = phase_ensembles(dev, smi)
     cs = phase_clustream(dev, smi)
     sv = phase_serve(dev, smi)
+    fl = phase_fleet(dev, smi)
     lm = phase_lm(dev, smi)
 
     names = ("tree_route", "vht_stats", "split_gain", "rule_stats",
@@ -2965,6 +3657,27 @@ def main():
                  "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                  "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                  "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+    # the fleet forms (phase 11): tree_route's batch per tree on the VHT
+    # fleet's path (its eager F = 1000 run) and its tree per row on the
+    # fleet's served batches; segment_sum's tenant form on the CluStream
+    # fleet's path (step mode, F = 1000)
+    fleet_launches = {
+        "tree_route_batched": fl["vht"]["launches"]["tree_route_batched"],
+        "tree_route_rows": fl["serve"]["launches"],
+        "segment_sum_tenant":
+            fl["clustream step"]["launches"]["segment_sum_tenant"]}
+    for name, src, rep in (
+            ("tree_route_batched", "tree_route", "tree_route"),
+            ("tree_route_rows", "tree_route", "tree_route"),
+            ("segment_sum_tenant", "rule_stats", "rule_stats")):
+        e = fl["kernels"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}.cu",
+                     "replaces": replaces[rep],
+                     "launches": fleet_launches[name],
+                     "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                     "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
     log(f"split_gain full fallback [{N_NODES},{M_ATTRS},{BINS},{C}]: "
         f"{json.dumps(kern['split_gain_full'])}")
     log(f"paths: {json.dumps(paths)}")
@@ -2972,6 +3685,7 @@ def main():
     log(f"ensembles: {json.dumps(ens)}")
     log(f"clustream: {json.dumps(cs)}")
     log(f"serve: {json.dumps(sv)}")
+    log(f"fleet: {json.dumps(fl)}")
     log(f"lm: {json.dumps(lm)}")
     log(f"ptxas: {json.dumps(ptxas)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

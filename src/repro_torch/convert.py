@@ -9,7 +9,9 @@ an LM's parameter or cache tree into the port's, split per layer;
 tree here that holds 64-bit arrays) into the port's accumulator.  A
 CluStream state and a chunked carry (``{"states": ..., "feedback": ...}``,
 the feedback ``None`` before the first step) go through
-``state_from_numpy`` like any learner state.  Dtypes
+``state_from_numpy`` like any learner state; ``fleet_state_from_numpy``
+takes a ``LearnerFleet``'s packed state (its ``[F, ...]`` tenant leaves
+and ``[F]`` cursor) and checks that every leaf has the fleet axis.  Dtypes
 are kept: f32 stays float32, i32 stays int32, bool stays bool and bf16
 stays bfloat16, and a uint32 PRNG key (the ensembles') stays uint32.
 64-bit arrays are refused, because numpy makes them by default and no
@@ -53,6 +55,25 @@ def state_from_numpy(tree, device=None):
 def state_to_numpy(tree):
     """Nested dicts/lists/tuples of tensors -> the same of numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def fleet_state_from_numpy(tree, device=None):
+    """A fleet state of the JAX package, read out as numpy (``{"tenant":
+    packed [F, ...] leaves, "cursor": [F] int32}``), -> the port's, on
+    ``device`` (``None`` means cuda).  Raises unless the cursor is [F]
+    int32 and every tenant leaf leads with the same F."""
+    if not (isinstance(tree, dict) and set(tree) == {"tenant", "cursor"}):
+        raise TypeError("a fleet state is {'tenant': ..., 'cursor': ...}")
+    cursor = np.asarray(tree["cursor"])
+    if cursor.ndim != 1 or cursor.dtype != np.int32:
+        raise TypeError(f"the fleet cursor must be [F] int32, got "
+                        f"{cursor.dtype} of shape {cursor.shape}")
+    F = cursor.shape[0]
+    for leaf in tree_leaves(tree["tenant"]):
+        if np.ndim(leaf) < 1 or np.shape(leaf)[0] != F:
+            raise ValueError(f"a tenant leaf of shape {np.shape(leaf)} "
+                             f"lacks the fleet axis of {F} tenants")
+    return state_from_numpy(tree, device)
 
 
 def params_from_numpy(tree, cfg, device=None):

@@ -165,7 +165,10 @@ class MetricAccumulator:
 
     Consumes one chunk's stacked metrics at a time (only ``[chunk_len]``
     scalars ever cross to the host) and keeps running sums and the
-    per-batch curve.  ``update`` does not synchronize: the chunk's metric
+    per-batch curve.  Leaves are ``[steps]`` for a single learner, or
+    ``[steps, F]`` for a ``LearnerFleet``: then every sum is an ``[F]``
+    column per tenant, each curve entry an ``[F]`` row, and no tenant's
+    metrics mix.  ``update`` does not synchronize: the chunk's metric
     leaves are kept, device tensors or host copies still being written
     (with the event after which they are complete), and folded, in arrival
     order, the first time a reader needs the numbers (``metric``,
@@ -176,6 +179,7 @@ class MetricAccumulator:
     thread flushes forks for checkpoints."""
 
     def __init__(self):
+        # floats for a single learner; [F] float64 columns for a fleet
         self._correct = 0.0
         self._abs_err = 0.0
         self._seen = 0.0
@@ -187,8 +191,8 @@ class MetricAccumulator:
         """Record one chunk's stacked metrics dict; no host sync here.
         ``ready`` is the CUDA event after which host copies in ``metrics``
         are complete (``_stage_to_host``); the fold waits on it alone.  A
-        step of zero weight carries the prior curve value forward instead
-        of dividing by zero."""
+        step of zero weight (in a fleet: a tenant's column) carries the
+        prior curve value forward instead of dividing by zero."""
         with self._lock:
             self._pending.append((metrics, ready))
 
@@ -199,10 +203,21 @@ class MetricAccumulator:
         zeros = np.zeros_like(seen)
         corr = _host(metrics.get("correct", zeros))
         abse = _host(metrics.get("abs_err", zeros))
+        signed = np.where(corr > 0, corr, -abse)
+        if seen.ndim > 1:                   # [steps, F]: tenant columns
+            self._correct = self._correct + corr.sum(axis=0)
+            self._abs_err = self._abs_err + abse.sum(axis=0)
+            self._seen = self._seen + seen.sum(axis=0)
+            prev = (self._curve[-1] if self._curve
+                    else np.zeros(seen.shape[1:], np.float64))
+            for t in range(seen.shape[0]):
+                prev = np.where(seen[t] > 0,
+                                signed[t] / np.maximum(seen[t], 1e-9), prev)
+                self._curve.append(prev)
+            return
         self._correct = float(self._correct + corr.sum())
         self._abs_err = float(self._abs_err + abse.sum())
         self._seen = float(self._seen + seen.sum())
-        signed = np.where(corr > 0, corr, -abse)
         prev = self._curve[-1] if self._curve else 0.0
         for t in range(seen.shape[0]):
             if seen[t] > 0:
@@ -250,14 +265,21 @@ class MetricAccumulator:
         return self.flush()._curve
 
     @property
-    def metric(self) -> float:
+    def metric(self):
         """Running metric: accuracy when correct-counts flowed, MAE
-        otherwise; 0.0 before any weight."""
+        otherwise; 0.0 before any weight.  A float for a single learner,
+        an ``[F]`` vector for a fleet, whose zero-weight columns read 0.0,
+        never NaN."""
         self.flush()
-        if not self._seen:
-            return 0.0
-        return self._correct / self._seen if self._correct \
-            else self._abs_err / self._seen
+        if np.ndim(self._seen) == 0:
+            if not self._seen:
+                return 0.0
+            return self._correct / self._seen if self._correct \
+                else self._abs_err / self._seen
+        num = np.where(np.asarray(self._correct) > 0, self._correct,
+                       self._abs_err)
+        return np.where(np.asarray(self._seen) > 0,
+                        num / np.maximum(self._seen, 1e-9), 0.0)
 
     def state(self):
         """Checkpointable tree of the accumulator (float64 numpy)."""
@@ -268,12 +290,17 @@ class MetricAccumulator:
                 "curve": np.asarray(self._curve, np.float64)}
 
     def load(self, state):
+        def num(v):
+            v = np.asarray(v, np.float64)
+            return float(v) if v.ndim == 0 else v
+
         with self._lock:
-            self._correct = float(state["correct"])
-            self._abs_err = float(state["abs_err"])
-            self._seen = float(state["seen"])
-            self._curve = [float(v) for v in np.asarray(state["curve"],
-                                                        np.float64)]
+            self._correct = num(state["correct"])
+            self._abs_err = num(state["abs_err"])
+            self._seen = num(state["seen"])
+            curve = np.asarray(state["curve"], np.float64)
+            self._curve = ([float(v) for v in curve] if curve.ndim <= 1
+                           else list(curve))
             self._pending = []
         return self
 

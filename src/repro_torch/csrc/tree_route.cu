@@ -1,4 +1,8 @@
 // tree_route: sort one shared [B, m] micro-batch to a leaf in each of M trees.
+// Two more forms serve a fleet of M = F learners, each with its own batch:
+// tree_route_batched (one [B, m] batch per member, xbin [M, B, m]) and
+// tree_route_rows (a member per row, xbin [R, m] and member [R]); see
+// the end of this file.
 //
 // Replaces src/repro/kernels/tree_route/kernel.py::tree_route_pallas
 // (kernel.py:61, its pallas_call at :68), which made every depth step a
@@ -65,7 +69,7 @@ tree_route_kernel(const int* __restrict__ split_attr,
                   const int* __restrict__ split_bin,
                   const int* __restrict__ children,
                   const int* __restrict__ xbin, int* __restrict__ leaf,
-                  int N, int B, int m, int max_depth) {
+                  int N, int B, int m, int max_depth, size_t xstride) {
   extern __shared__ unsigned lr[];
   __shared__ int n_inner;
   const int words = (N + 31) >> 5;
@@ -110,9 +114,11 @@ tree_route_kernel(const int* __restrict__ split_attr,
 
   const int b = blockIdx.x * WARPS + warp;
   if (b >= B) return;
-  // 3. one decision bit per inner node, all loads of a batch in flight
+  // 3. one decision bit per inner node, all loads of a batch in flight;
+  // the member's batch starts xstride ints into xbin (0: one shared batch)
   const int K = n_inner;
-  const size_t row = (size_t)b * m, end = (size_t)B * m;
+  const size_t first = (size_t)member * xstride;
+  const size_t row = first + (size_t)b * m, end = first + (size_t)B * m;
   unsigned* d = dec + warp * words;
   for (int k0 = 0; k0 < K; k0 += 32 * ROUNDS) {
     int v[ROUNDS];
@@ -144,10 +150,11 @@ tree_route_kernel(const int* __restrict__ split_attr,
 
 }  // namespace
 
-extern "C" int tree_route_launch(const void* split_attr, const void* split_bin,
-                                 const void* children, const void* xbin,
-                                 void* leaf, int M, int N, int B, int m,
-                                 int max_depth, void* stream) {
+namespace {
+
+int launch(const void* split_attr, const void* split_bin, const void* children,
+           const void* xbin, void* leaf, int M, int N, int B, int m,
+           int max_depth, size_t xstride, void* stream) {
   if (N <= 0 || N > 0x8000) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(N);
   if (smem > 48 * 1024) {
@@ -159,7 +166,83 @@ extern "C" int tree_route_launch(const void* split_attr, const void* split_bin,
   dim3 grid((B + WARPS - 1) / WARPS, M);
   tree_route_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)split_attr, (const int*)split_bin, (const int*)children,
-      (const int*)xbin, (int*)leaf, N, B, m, max_depth);
+      (const int*)xbin, (int*)leaf, N, B, m, max_depth, xstride);
+  return (int)cudaGetLastError();
+}
+
+// The form for rows of mixed members (a served batch of a fleet): a
+// thread per row walks its member's tree from device memory, split
+// attribute, bin, the row's value and the child id at each level, a chain
+// of dependent reads max_depth long at most (5 levels on a fleet's
+// 31-node trees).  A block cannot stage one table for rows of different
+// members, and at the server's batch of 16 rows the tables' reads, not
+// the walk, are the work; the tables of a fleet (F x N nodes) stay in L2.
+// A row whose member is outside [0, M) gets -1; a split attribute >= m,
+// which no valid tree has, reads 0, as the other forms do.
+constexpr int ROW_THREADS = 128;
+
+__global__ void __launch_bounds__(ROW_THREADS)
+tree_route_rows_kernel(const int* __restrict__ split_attr,
+                       const int* __restrict__ split_bin,
+                       const int* __restrict__ children,
+                       const int* __restrict__ xbin,
+                       const int* __restrict__ member, int* __restrict__ leaf,
+                       int M, int N, int R, int m, int max_depth) {
+  const int r = blockIdx.x * ROW_THREADS + threadIdx.x;
+  if (r >= R) return;
+  const int t = member[r];
+  if (t < 0 || t >= M) {
+    leaf[r] = -1;
+    return;
+  }
+  const size_t base = (size_t)t * N;
+  const int* x = xbin + (size_t)r * m;
+  int node = 0;
+  for (int depth = 0; depth < max_depth; ++depth) {
+    const int a = split_attr[base + node];
+    if (a < 0) break;
+    const int v = a < m ? x[a] : 0;
+    node = children[2 * (base + node) + (v > split_bin[base + node])];
+  }
+  leaf[r] = node;
+}
+
+}  // namespace
+
+// One shared batch: xbin [B, m] -> leaf [M, B].
+extern "C" int tree_route_launch(const void* split_attr, const void* split_bin,
+                                 const void* children, const void* xbin,
+                                 void* leaf, int M, int N, int B, int m,
+                                 int max_depth, void* stream) {
+  return launch(split_attr, split_bin, children, xbin, leaf, M, N, B, m,
+                max_depth, 0, stream);
+}
+
+// One batch per member (a fleet's step, M = F): xbin [M, B, m] -> leaf
+// [M, B].  The same kernel; a block reads its own member's rows.
+extern "C" int tree_route_batched_launch(const void* split_attr,
+                                         const void* split_bin,
+                                         const void* children,
+                                         const void* xbin, void* leaf, int M,
+                                         int N, int B, int m, int max_depth,
+                                         void* stream) {
+  return launch(split_attr, split_bin, children, xbin, leaf, M, N, B, m,
+                max_depth, (size_t)B * m, stream);
+}
+
+// A member per row: xbin [R, m], member [R] -> leaf [R].
+extern "C" int tree_route_rows_launch(const void* split_attr,
+                                      const void* split_bin,
+                                      const void* children, const void* xbin,
+                                      const void* member, void* leaf, int M,
+                                      int N, int R, int m, int max_depth,
+                                      void* stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((R + ROW_THREADS - 1) / ROW_THREADS);
+  tree_route_rows_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)split_attr, (const int*)split_bin, (const int*)children,
+      (const int*)xbin, (const int*)member, (int*)leaf, M, N, R, m,
+      max_depth);
   return (int)cudaGetLastError();
 }
 

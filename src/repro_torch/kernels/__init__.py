@@ -15,11 +15,15 @@ columns) in ``<wrapper>.wide_launches``.
 """
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.rule_stats.ops import rule_stats_scatter, segment_sum
+from repro_torch.kernels.rule_stats.ops import (rule_stats_scatter,
+                                                segment_sum,
+                                                segment_sum_tenant)
 from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.kernels.split_gain.ops import split_gain
 from repro_torch.kernels.split_poisson.ops import split_poisson
-from repro_torch.kernels.tree_route.ops import tree_route
+from repro_torch.kernels.tree_route.ops import (tree_route,
+                                                tree_route_batched,
+                                                tree_route_rows)
 from repro_torch.kernels.vht_stats.ops import stats_update
 
 KERNELS = {"tree_route": tree_route, "vht_stats": stats_update,
@@ -28,8 +32,13 @@ KERNELS = {"tree_route": tree_route, "vht_stats": stats_update,
 # the rule_stats kernel also sums AMRules' float reductions in instance
 # order; those launches are counted apart from the moment statistics'.
 # split_poisson (the ensembles' member weights) replaces no TPU kernel.
+# A fleet's forms of tree_route (a batch per tree, a tree per row) and of
+# segment_sum (a sum per tenant) count apart from the forms they extend.
 COUNTED = {**KERNELS, "segment_sum": segment_sum,
-           "split_poisson": split_poisson}
+           "split_poisson": split_poisson,
+           "tree_route_batched": tree_route_batched,
+           "tree_route_rows": tree_route_rows,
+           "segment_sum_tenant": segment_sum_tenant}
 
 
 def reset_launches() -> None:

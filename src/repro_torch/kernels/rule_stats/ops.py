@@ -17,6 +17,12 @@ them and take another scatter through ``scatter=`` (the plain one, say):
                        included; "auto" is the same here) or "onehot";
   batch_sum         -- a whole-array sum in XLA's CPU order (by default
                        through ``segment_sum``).
+
+A fleet of F learners takes the kernel's tenant form: ``segment_sum_tenant``
+sums F independent segment sums in one launch (each tenant's rows in its
+own segments, in instance order, so each tenant's sums are the single
+learner's bits), and ``batch_sum_tenant`` is ``batch_sum`` per tenant
+through it.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rule_stats.ref import (batch_sum_with,
+from repro_torch.kernels.rule_stats.ref import (batch_sum_tenant_with,
+                                                batch_sum_with,
                                                 rule_stats_ref,
                                                 rule_stats_scatter_ref,
+                                                segment_sum_tenant_ref,
                                                 segment_update_with)
 
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
@@ -93,6 +101,44 @@ def segment_sum(out, seg, xbin, vals):
 rule_stats_scatter.launches = rule_stats_scatter.wide_launches = 0
 segment_sum.launches = segment_sum.wide_launches = 0
 
+_TENANT_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (
+    ctypes.c_void_p,)
+
+
+def segment_sum_tenant(out, seg, vals):
+    """F segment sums in one launch.  out: [F, S, C] f32; seg: [F * B]
+    i32, tenant f's rows at [f * B, (f + 1) * B), their segment ids local
+    to the tenant (outside [0, S): dropped); vals: [F * B, C] f32.  Adds
+    each tenant's rows to its own segments in instance order, in place;
+    returns ``out``.  Counted in ``segment_sum_tenant.launches``, apart
+    from ``segment_sum``."""
+    if out.device.type == "cpu":
+        return segment_sum_tenant_ref(out, seg, vals)
+    F, S, C = out.shape
+    n = seg.shape[0]
+    if F == 0 or n % F:
+        raise ValueError(f"segment_sum_tenant: {n} rows do not split into "
+                         f"{F} tenants")
+    _build.check_tensor(out, torch.float32, (F, S, C), "out")
+    _build.check_tensor(seg, torch.int32, (n,), "seg", out.device)
+    _build.check_tensor(vals, torch.float32, (n, C), "vals", out.device)
+    if C > MAX_COLUMNS:
+        raise ValueError(f"segment_sum_tenant takes at most {MAX_COLUMNS} "
+                         f"columns, got {C}")
+    if out.numel() == 0 or n == 0:
+        return out
+    fn = _build.function("rule_stats", "segment_sum_tenant_launch",
+                         _TENANT_ARGTYPES)
+    with torch.cuda.device(out.device):
+        err = fn(out.data_ptr(), seg.data_ptr(), vals.data_ptr(), F, S, C,
+                 n // F, _build.stream_of(out))
+    _build.check(err, "segment_sum_tenant")
+    segment_sum_tenant.launches += 1
+    return out
+
+
+segment_sum_tenant.launches = 0
+
 
 def rule_stats_update(stats, seg, xbin, mom, *, impl: str = "auto",
                       scatter=None):
@@ -121,5 +167,14 @@ def batch_sum(vals, shape=None, *, scatter=None):
     return batch_sum_with(scatter or segment_sum, vals, shape)
 
 
-__all__ = ["MAX_COLUMNS", "MAX_MOMENTS", "batch_sum", "rule_moments",
-           "rule_stats_scatter", "rule_stats_update", "segment_sum"]
+def batch_sum_tenant(vals, shape=None, *, scatter=None):
+    """``batch_sum`` of each tenant: ``vals`` [F, N, K] -> [F, K], each
+    tenant's N rows in XLA's CPU order of a whole array of ``shape``
+    (default ``(N,)``); one ``segment_sum_tenant`` launch a level of
+    windows for all F tenants."""
+    return batch_sum_tenant_with(scatter or segment_sum_tenant, vals, shape)
+
+
+__all__ = ["MAX_COLUMNS", "MAX_MOMENTS", "batch_sum", "batch_sum_tenant",
+           "rule_moments", "rule_stats_scatter", "rule_stats_update",
+           "segment_sum", "segment_sum_tenant"]

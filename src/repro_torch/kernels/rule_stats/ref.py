@@ -9,7 +9,9 @@ ascending instance order, as XLA's CPU scatter does.  It adds in passes
 of distinct cells, so it runs the same way, and deterministically, on any
 device.  ``rule_stats_ref`` is the JAX package's one-hot oracle.
 ``xla_windows`` is XLA's CPU order of a whole-array sum, and
-``batch_sum_with`` takes it with a given scatter.
+``batch_sum_with`` takes it with a given scatter.  ``segment_sum_tenant_ref``
+is the plain version of the kernel's tenant form (F independent segment
+sums), and ``batch_sum_tenant_with`` a batch sum per tenant.
 """
 
 from __future__ import annotations
@@ -141,3 +143,53 @@ def segment_update_with(scatter, stats, seg, xbin, mom):
     stats[0] = stats[0] + batch_sum_with(rule_stats_scatter_ref,
                                          parts.view(n_win, -1)).view(m, nb, C)
     return stats
+
+
+def segment_sum_tenant_ref(out, seg, vals):
+    """out: [F, S, C] f32; seg: [F * B] i32, tenant f's rows at [f * B,
+    (f + 1) * B) with segment ids in [0, S) (others are dropped); vals:
+    [F * B, C] f32.  ``out[f, seg_i] += vals[i]`` for each tenant's rows
+    in instance order, in place; returns ``out``.
+
+    The per-tenant scatters of ``rule_stats_scatter_ref`` composed into
+    one: tenant f's segment s becomes row f * S + s of [F * S] rows (a
+    dropped row, row F * S, which the scatter drops too).  Each cell gets
+    its own tenant's rows, in instance order, as a scatter per tenant
+    would add them."""
+    F, S, C = out.shape
+    n = seg.shape[0]
+    if F * S == 0 or n == 0:
+        return out
+    s = seg.long().view(F, n // F)
+    ok = (s >= 0) & (s < S)
+    rows = s + torch.arange(F, device=seg.device)[:, None] * S
+    flat = torch.where(ok, rows, F * S).reshape(-1).to(torch.int32)
+    zero = torch.zeros((n, 1), dtype=torch.int32, device=seg.device)
+    rule_stats_scatter_ref(out.view(F * S, 1, 1, C), flat, zero, vals)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def tenant_windows(shape, n_tenants, device):
+    """``xla_windows(shape)``'s levels for ``n_tenants`` tenants at once:
+    each level's window ids repeated for every tenant (i32 [F * n]) and
+    its window count.  Cached: the tensors are shared and must not be
+    written."""
+    return tuple((ids.repeat(n_tenants), n_win)
+                 for ids, _, n_win in xla_windows(shape, device))
+
+
+def batch_sum_tenant_with(scatter, vals, shape=None):
+    """Each tenant's ``batch_sum_with``: ``vals`` [F, N, K] summed over
+    its N rows -> [F, K], each tenant's rows in the order XLA on the CPU
+    sums a whole array of ``shape`` (default ``(N,)``).  Each level of
+    windows is one tenant-form ``scatter`` into zeros for all tenants."""
+    F, N, K = vals.shape
+    shape = tuple(shape) if shape is not None else (N,)
+    if math.prod(shape) != N:
+        raise ValueError(f"shape {shape} does not hold {N} elements")
+    vals = vals.reshape(F * N, K)
+    for ids, n_win in tenant_windows(shape, F, vals.device):
+        vals = scatter(vals.new_zeros((F, n_win, K)), ids,
+                       vals).view(F * n_win, K)
+    return vals.view(F, K)

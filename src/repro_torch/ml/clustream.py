@@ -23,6 +23,14 @@ metric) agrees within float32 rounding, not bit for bit.  The macro phase
 is gated with ``compiled.gate``: a conditional node in a captured step, a
 host read eagerly; the step reads nothing else on the host.
 
+The state functions and the step take a leading tenant axis too: a fleet
+of F CluStreams (``ml.fleet``) keeps its CF tensors as [F, K, ...], its
+clock as [F], and steps them as they are, each segment reduction one
+launch of the kernel's tenant form (``segment_sum_tenant``,
+``batch_sum_tenant``) for all F tenants.  Each tenant's sums are its own
+learner's, in its instance order; the products become batched products
+(``torch.matmul`` over the tenant axis).
+
 The JAX package's ``state_sharding`` and its mesh-aware macro gather
 (``_active_mesh``) belong to the distributed runtime, which the port does
 not have yet.
@@ -38,7 +46,9 @@ from repro_torch.core import prng
 from repro_torch.core.compiled import gate
 from repro_torch.core.pytree import tree_map
 from repro_torch.core.xla_numerics import fma, sqrt
-from repro_torch.kernels.rule_stats.ops import batch_sum, segment_sum
+from repro_torch.kernels.rule_stats.ops import (batch_sum, batch_sum_tenant,
+                                                segment_sum,
+                                                segment_sum_tenant)
 
 f32 = torch.float32
 i32 = torch.int32
@@ -97,11 +107,11 @@ def init_clustream(cc: CluStreamConfig, key, init_x=None):
 
 
 def _centroids(state):
-    return state["ls"] / torch.clamp(state["n"][:, None], min=1e-9)
+    return state["ls"] / torch.clamp(state["n"][..., None], min=1e-9)
 
 
 def _radius(state):
-    n = torch.clamp(state["n"], min=1e-9)[:, None]
+    n = torch.clamp(state["n"], min=1e-9)[..., None]
     mean = state["ls"] / n
     # XLA contracts ss/n - mean^2 into one fused multiply-add
     var = torch.clamp(fma(-mean, mean, state["ss"] / n), min=0.0)
@@ -109,29 +119,42 @@ def _radius(state):
 
 
 def pairwise_d2(x, c, impl: str = "segment"):
-    """[B, K] squared distances.  The segment path is one [B, d] x [d, K]
-    product plus rank-1 norms; the onehot path materializes the [B, K, d]
-    broadcast difference."""
+    """[B, K] squared distances ([F, B, K] for a tenant axis).  The
+    segment path is one [B, d] x [d, K] product plus rank-1 norms; the
+    onehot path materializes the [B, K, d] broadcast difference."""
     if impl == "onehot":
-        return torch.square(x[:, None] - c[None]).sum(-1)
-    d2 = (torch.square(x).sum(-1)[:, None] + torch.square(c).sum(-1)[None]
-          - (2.0 * x) @ c.T)
+        return torch.square(x[..., :, None, :] - c[..., None, :, :]).sum(-1)
+    d2 = (torch.square(x).sum(-1)[..., :, None]
+          + torch.square(c).sum(-1)[..., None, :]
+          - (2.0 * x) @ c.transpose(-1, -2))
     return torch.clamp(d2, min=0.0)
 
 
 def _one_hot(idx, n):
     """``jax.nn.one_hot(idx, n, dtype=f32)``: a comparison, which reads
     nothing on the host (``F.one_hot`` checks its range there)."""
-    return (idx[:, None] == torch.arange(n, device=idx.device)).to(f32)
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(f32)
 
 
 def _segment_sums(seg, vals, K):
     """``jax.ops.segment_sum(vals, seg, K + 1)[:K]`` for [B, C] vals: each
-    segment's rows summed from zero in instance order (the kernel)."""
+    segment's rows summed from zero in instance order (the kernel).  With
+    a tenant axis (seg [F, B], vals [F, B, C]) each tenant's own, in one
+    launch of the tenant form -> [F, K, C]."""
+    if seg.dim() == 2:
+        F, B, C = vals.shape
+        out = vals.new_zeros((F, K + 1, C))
+        return segment_sum_tenant(out, seg.reshape(F * B),
+                                  vals.reshape(F * B, C))[:, :K]
     B, C = vals.shape
     out = vals.new_zeros((K + 1, 1, 1, C))
     zero = torch.zeros((B, 1), dtype=i32, device=vals.device)
     return segment_sum(out, seg, zero, vals.contiguous()).view(K + 1, C)[:K]
+
+
+def _batch_sum(vals):
+    """``batch_sum`` of [N, K] vals, or of each tenant's [F, N, K]."""
+    return batch_sum(vals) if vals.dim() == 2 else batch_sum_tenant(vals)
 
 
 def _cf_scatter(state, x, t, seg, cc: CluStreamConfig):
@@ -140,35 +163,38 @@ def _cf_scatter(state, x, t, seg, cc: CluStreamConfig):
     K, d = cc.n_micro, cc.n_dims
     state = dict(state)
     if _impl(cc) == "onehot":
-        oh = _one_hot(seg, K + 1)[:, :K]
-        state["n"] = state["n"] + oh.sum(0)        # sums of 0 and 1: exact
-        state["ls"] = state["ls"] + oh.T @ x
-        state["ss"] = state["ss"] + oh.T @ torch.square(x)
-        state["lt"] = state["lt"] + oh.T @ t
-        state["st"] = state["st"] + oh.T @ torch.square(t)
+        oh = _one_hot(seg, K + 1)[..., :K]
+        ohT = oh.transpose(-1, -2)
+        state["n"] = state["n"] + oh.sum(-2)       # sums of 0 and 1: exact
+        state["ls"] = state["ls"] + ohT @ x
+        state["ss"] = state["ss"] + ohT @ torch.square(x)
+        state["lt"] = state["lt"] + (ohT @ t[..., None])[..., 0]
+        state["st"] = state["st"] + (ohT @ torch.square(t)[..., None])[..., 0]
         return state
-    moments = _segment_sums(seg, torch.cat([x, torch.square(x)], 1), K)
+    moments = _segment_sums(seg, torch.cat([x, torch.square(x)], -1), K)
     times = _segment_sums(seg, torch.stack(
-        [torch.ones_like(t), t, torch.square(t)], 1), K)
-    state["n"] = state["n"] + times[:, 0]
-    state["ls"] = state["ls"] + moments[:, :d]
-    state["ss"] = state["ss"] + moments[:, d:]
-    state["lt"] = state["lt"] + times[:, 1]
-    state["st"] = state["st"] + times[:, 2]
+        [torch.ones_like(t), t, torch.square(t)], -1), K)
+    state["n"] = state["n"] + times[..., 0]
+    state["ls"] = state["ls"] + moments[..., :d]
+    state["ss"] = state["ss"] + moments[..., d:]
+    state["lt"] = state["lt"] + times[..., 1]
+    state["st"] = state["st"] + times[..., 2]
     return state
 
 
 def update(state, x, cc: CluStreamConfig):
-    """Online phase for a micro-batch x: [B, d]."""
-    B = x.shape[0]
+    """Online phase for a micro-batch x: [B, d] (or [F, B, d], a batch
+    per tenant of a state with a tenant axis)."""
+    B = x.shape[-2]
     impl = _impl(cc)
     d2 = pairwise_d2(x, _centroids(state), impl)               # [B, K]
     nearest = torch.argmin(d2, -1)
-    ndist = sqrt(torch.gather(d2, 1, nearest[:, None])[:, 0])
-    rad = _radius(state)[nearest] * cc.radius_factor + 1e-6
+    ndist = sqrt(torch.gather(d2, -1, nearest[..., None])[..., 0])
+    rad = torch.gather(_radius(state), -1, nearest) * cc.radius_factor + 1e-6
     absorb = ndist <= rad
 
-    t = state["t"] + torch.arange(1, B + 1, dtype=f32, device=x.device)
+    t = state["t"][..., None] + torch.arange(1, B + 1, dtype=f32,
+                                             device=x.device)
     K = cc.n_micro
     seg = torch.where(absorb, nearest, K).to(i32)
     state = _cf_scatter(state, x, t, seg, cc)
@@ -176,16 +202,20 @@ def update(state, x, cc: CluStreamConfig):
     # non-absorbed instances replace the stalest micro-clusters (batch: the
     # first such instance wins; capacity-bounded replacement)
     stale = state["lt"] / torch.clamp(state["n"], min=1e-9)
-    victim = torch.argmin(stale)
+    victim = torch.argmin(stale, -1)
     new = ~absorb
-    first_new = torch.argmax(new.to(torch.uint8)).reshape(1)
-    any_new = new.any()
-    xn = x.index_select(0, first_new)                       # [1, d]
-    tn = t.index_select(0, first_new)                       # [1]
-    hit = (torch.arange(K, device=x.device) == victim) & any_new
+    first_new = torch.argmax(new.to(torch.uint8), -1)[..., None]
+    any_new = new.any(-1)
+    xn = torch.gather(x, -2, first_new[..., None].expand(
+        *first_new.shape, x.shape[-1]))                     # [1, d]
+    tn = torch.gather(t, -1, first_new)                     # [1]
+    hit = ((torch.arange(K, device=x.device) == victim[..., None])
+           & any_new[..., None])
 
     def repl(arr, val):
-        return torch.where(hit.view((-1,) + (1,) * (arr.dim() - 1)), val, arr)
+        return torch.where(hit.view(hit.shape + (1,) * (arr.dim()
+                                                        - hit.dim())),
+                           val, arr)
 
     state["n"] = repl(state["n"], torch.ones((), dtype=f32, device=x.device))
     state["ls"] = repl(state["ls"], xn)
@@ -198,18 +228,22 @@ def update(state, x, cc: CluStreamConfig):
 
 def macro_cluster(state, cc: CluStreamConfig, key=None):
     """Micro-batch phase: weighted k-means over micro-cluster centroids,
-    ``kmeans_iters`` rounds from the ``n_macro`` heaviest."""
+    ``kmeans_iters`` rounds from the ``n_macro`` heaviest (each tenant's
+    own, for a state with a tenant axis)."""
     impl = _impl(cc)
     cent = _centroids(state)
     w = state["n"]
     k = cc.n_macro
-    c = cent.index_select(0, torch.argsort(-w, stable=True)[:k])
+    top = torch.argsort(-w, dim=-1, stable=True)[..., :k]
+    c = torch.gather(cent, -2, top[..., None].expand(*top.shape,
+                                                     cent.shape[-1]))
     for _ in range(cc.kmeans_iters):
         a = torch.argmin(pairwise_d2(cent, c, impl), -1)       # [K]
-        oh = _one_hot(a, k) * w[:, None]
-        tot = batch_sum(oh)                                    # [k]
-        newc = (oh.T @ cent) / torch.clamp(tot[:, None], min=1e-9)
-        c = torch.where(tot[:, None] > 0, newc, c)
+        oh = _one_hot(a, k) * w[..., None]
+        tot = _batch_sum(oh)                                   # [k]
+        newc = ((oh.transpose(-1, -2) @ cent)
+                / torch.clamp(tot[..., None], min=1e-9))
+        c = torch.where(tot[..., None] > 0, newc, c)
     return c
 
 
@@ -236,8 +270,9 @@ def assign(centers, x):
 
 def ssq(centers, x):
     """The batch's sum of squared distances to the nearest center, summed
-    in XLA's CPU order."""
-    return batch_sum(torch.amin(pairwise_d2(x, centers), -1)[:, None])[0]
+    in XLA's CPU order (each tenant's, for a tenant axis)."""
+    return _batch_sum(torch.amin(pairwise_d2(x, centers), -1)[..., None])[
+        ..., 0]
 
 
 class CluStream:
@@ -278,18 +313,30 @@ class CluStream:
             crossed = (torch.div(t0, cc.period, rounding_mode="floor")
                        != torch.div(state["t"], cc.period,
                                     rounding_mode="floor"))
-            state["macro"], state["macro_t"] = gate(
-                crossed,
-                lambda s: (macro_cluster(s, cc), s["t"]),
-                lambda s: (macro_prev, macro_t_prev),
-                state)
+            state["macro"], state["macro_t"] = self._macro(
+                crossed, state, macro_prev, macro_t_prev)
         else:
             state["macro"], state["macro_t"] = macro_prev, macro_t_prev
-        metrics = {"seen": torch.full((), float(x.shape[0]), dtype=f32,
-                                      device=x.device),
+        metrics = {"seen": torch.full(x.shape[:-2], float(x.shape[-2]),
+                                      dtype=f32, device=x.device),
                    "ssq": ssq(state["macro"], x),
-                   "n_active": (state["n"] >= 1.0).to(f32).sum()}
+                   "n_active": (state["n"] >= 1.0).to(f32).sum(-1)}
         return state, metrics
+
+    def _macro(self, crossed, state, prev, prev_t):
+        """(macro, macro_t): recomputed where the clock crossed a period,
+        ``prev`` and ``prev_t`` elsewhere.  The k-means is gated on any
+        crossing; with a tenant axis (``crossed`` [F]) it runs for all
+        tenants and each crossed tenant takes its own result."""
+        cc = self.cc
+
+        def recompute(s):
+            return (torch.where(crossed[..., None, None],
+                                macro_cluster(s, cc), prev),
+                    torch.where(crossed, s["t"], prev_t))
+
+        return gate(crossed.any(), recompute, lambda s: (prev, prev_t),
+                    state)
 
     def _boundary(self, state):
         """Chunk-boundary phase (exposed as ``self.boundary`` in boundary
@@ -300,11 +347,8 @@ class CluStream:
         crossed = (torch.div(state["t"], cc.period, rounding_mode="floor")
                    != torch.div(state["macro_t"], cc.period,
                                 rounding_mode="floor"))
-        state["macro"], state["macro_t"] = gate(
-            crossed,
-            lambda s: (macro_cluster(s, cc), s["t"]),
-            lambda s: (s["macro"], s["macro_t"]),
-            state)
+        state["macro"], state["macro_t"] = self._macro(
+            crossed, state, state["macro"], state["macro_t"])
         return state
 
     def run(self, state, x_stream):

@@ -191,22 +191,15 @@ class OzaEnsemble:
             return (t["split_attr"] < 0) & (t["since_attempt"] >= tc.n_min)
 
         def apply_members(t, should, attr, tbin, children=None):
-            """Each member's ``apply_splits``, gated on any split landing
-            (an identity when none does); the split leaves' statistics
-            are cleared in place."""
+            """The members' ``apply_splits`` at once, gated on any split
+            landing (an identity when none does); the split leaves'
+            statistics are cleared in place."""
             def split(t):
-                out = []
-                for i in range(M):
-                    tree = {k: v[i] for k, v in t.items()}
-                    tree["stats"] = stats[i]
-                    cc = None if children is None else (children[0][i],
-                                                        children[1][i])
-                    tree, _ = htree._apply_splits_impl(
-                        tree, should[i], attr[i], tbin[i], tci,
-                        child_counts=cc)
-                    tree.pop("stats")
-                    out.append(tree)
-                return {k: torch.stack([o[k] for o in out]) for k in t}
+                trees, _ = htree._apply_splits_impl(
+                    {**t, "stats": stats}, should, attr, tbin, tci,
+                    child_counts=children)
+                trees.pop("stats")
+                return trees
             return gate(should.any(), split, lambda t: t, t)
 
         def split_all(t):

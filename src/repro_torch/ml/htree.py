@@ -15,6 +15,14 @@ Three kernels carry the module: ``tree_route`` (``route``/``predict``),
 a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
 runs its plain version.
 
+The step's functions (``route``, ``predict``, ``update_stats``,
+``decide_splits``, ``apply_splits``) also take F trees stacked on a
+leading axis, each with its own micro-batch (``xbin`` [F, B, m]): a
+fleet's tenants, the members of an ensemble.  Every kernel then launches
+once for all F trees (``tree_route``'s batched form; ``vht_stats`` and
+``split_gain`` over the node pools flattened to [F * N], see ``fold``),
+and row f of the result is tree f's own, bit for bit.
+
 Where the JAX package gates work with ``lax.cond`` (``decide_splits``,
 ``gated_check``, ``apply_splits``), the port has two forms.  Eagerly it
 branches in Python on a value read from the device, so each gate costs one
@@ -35,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.core import compiled
 from repro_torch.device import resolve_device
 from repro_torch.kernels.split_gain.ops import NEG, split_gain
-from repro_torch.kernels.tree_route.ops import tree_route
+from repro_torch.kernels.tree_route.ops import tree_route, tree_route_batched
 from repro_torch.kernels.vht_stats.ops import stats_update
 
 f32 = torch.float32
@@ -116,11 +124,26 @@ def top_k(x, k: int):
 # routing (model aggregator: sort instance to leaf -- Alg. 1 line 1)
 # --------------------------------------------------------------------------
 
+def fold(idx, n: int):
+    """Indices into each tree's n rows, ``idx`` [F, B] for F trees on a
+    leading axis, as indices into their rows flattened to [F * n] (tree
+    f's at [f * n, (f + 1) * n)), flattened to [F * B].  One tree's [B]
+    indices are returned as they are."""
+    if idx.dim() == 1:
+        return idx
+    off = torch.arange(idx.shape[0], dtype=idx.dtype, device=idx.device)
+    return (idx + off[:, None] * n).reshape(-1)
+
+
 def route(state, xbin, tc: TreeConfig):
     """xbin: [B, m] i32 binned attributes -> leaf ids [B] i32, through the
-    ``tree_route`` kernel with one tree."""
-    return tree_route(state["split_attr"], state["split_bin"],
-                      state["children"], xbin, max_depth=tc.max_depth)
+    ``tree_route`` kernel with one tree; F trees ([F, N] tables), each
+    with its own batch (xbin [F, B, m]) -> [F, B], in one launch of its
+    batched form."""
+    tables = (state["split_attr"], state["split_bin"], state["children"])
+    if state["split_attr"].dim() == 1:
+        return tree_route(*tables, xbin, max_depth=tc.max_depth)
+    return tree_route_batched(*tables, xbin, max_depth=tc.max_depth)
 
 
 def route_members(trees, xbin, tc: TreeConfig):
@@ -142,22 +165,11 @@ def vote(trees, leaf, n_classes: int):
     return votes, pred
 
 
-def restack(stacked, members):
-    """The members' trees stacked on a leading axis again: a leaf that
-    every member updated in place (its own row of ``stacked``, as the
-    statistics) stays as it is; every other leaf is stacked anew."""
-    out = {}
-    for k, whole in stacked.items():
-        rows = [m[k] for m in members]
-        same = all(r.data_ptr() == whole[i].data_ptr() and
-                   r.shape == whole[i].shape for i, r in enumerate(rows))
-        out[k] = whole if same else torch.stack(rows)
-    return out
-
-
 def predict(state, xbin, tc: TreeConfig):
     leaf = route(state, xbin, tc)
-    counts = state["class_counts"][leaf.long()]
+    lf = leaf.long()
+    counts = torch.gather(state["class_counts"], -2,
+                          lf[..., None].expand(*lf.shape, tc.n_classes))
     return torch.argmax(counts, dim=-1).to(i32), leaf
 
 
@@ -167,18 +179,30 @@ def predict(state, xbin, tc: TreeConfig):
 
 def update_stats(state, leaf, xbin, y, w, tc: TreeConfig):
     """Accumulate n_ijk for a micro-batch.  w: [B] f32 weights (0 = dropped).
+    F trees on a leading axis take leaf, y, w [F, B] and xbin [F, B, m]:
+    one ``vht_stats`` launch over their statistics viewed as [F * N, m,
+    bins, C], the leaves folded (``fold``), and one ``index_add`` a
+    counter over the [F * N] pool.
 
     ``state["stats"]`` is updated IN PLACE by the ``vht_stats`` kernel
     (the JAX package returns a new array); the other counters are new
     tensors in the returned dict.
     """
-    lf = leaf.long()
-    clsoh = F.one_hot(y.long(), tc.n_classes).to(f32) * w[:, None]
+    C = tc.n_classes
+    lf = fold(leaf, tc.max_nodes)
+    wf = w.reshape(-1)
+    yf = y.reshape(-1)
+    stats = state["stats"]
+    stats_update(stats.view((-1,) + stats.shape[-3:]), lf,
+                 xbin.reshape(lf.shape[0], -1), yf, wf)
+    lf = lf.long()
+    clsoh = F.one_hot(yf.long(), C).to(f32) * wf[:, None]
     state = dict(state)
-    state["stats"] = stats_update(state["stats"], leaf, xbin, y, w)
-    state["class_counts"] = state["class_counts"].index_add(0, lf, clsoh)
-    state["since_attempt"] = state["since_attempt"].index_add(0, lf, w)
-    state["n_total"] = state["n_total"].index_add(0, lf, w)
+    for key, val in (("class_counts", clsoh), ("since_attempt", wf),
+                     ("n_total", wf)):
+        old = state[key]
+        state[key] = old.reshape((-1,) + val.shape[1:]).index_add(
+            0, lf, val).view(old.shape)
     return state
 
 
@@ -192,8 +216,7 @@ def update_stats_members(trees, leaf, xbin, y, w, tc: TreeConfig):
     M, N, C = leaf.shape[0], tc.max_nodes, tc.n_classes
     for k in range(M):
         stats_update(trees["stats"][k], leaf[k], xbin, y, w[k])
-    rows = torch.arange(M, device=leaf.device)[:, None] * N
-    flat = (leaf.long() + rows).reshape(-1)
+    flat = fold(leaf, N).long()
     wf = w.reshape(-1)
     clsoh = (F.one_hot(y.long(), C).to(f32)[None] * w[:, :, None]).reshape(-1, C)
     trees = dict(trees)
@@ -310,36 +333,45 @@ def scatter_rows(n, idx, values):
 def decide_splits(state, tc: TreeConfig):
     """MA Receive(local_result): top-2 across attributes, Hoeffding test.
 
-    Returns (should_split[N], best_attr[N], best_bin[N]).  With
-    tc.gate_splits the gain reduction is gated on the grace period,
-    exactly:
+    Returns (should_split[N], best_attr[N], best_bin[N]) ([F, N] for F
+    trees on a leading axis, whose node pools are checked as one [F * N]
+    pool: each row's decision is its own).  With tc.gate_splits the gain
+    reduction is gated on the grace period, exactly:
 
       * no leaf due            -> skip entirely; all-False is exact because
                                   only attempted leaves can split
-      * <= check_tile leaves due -> gather just those rows (top-k on the
-                                  grace counter) and reduce [K, m, bins, C]
-                                  instead of [N, m, bins, C]
+      * <= check_tile leaves due a tree -> gather just those rows (top-k
+                                  on the grace counter) and reduce [K, m,
+                                  bins, C] instead of [F * N, m, bins, C]
       * more due than the tile -> fall back to the full reduction
     """
+    shape = state["split_attr"].shape
+    FN = state["split_attr"].numel()
+    pool = {k: state[k].reshape((FN,) + state[k].shape[len(shape):])
+            for k in _DECIDE_KEYS}
+
+    def unfold(vals):
+        return tuple(v.reshape(shape) for v in vals)
+
     if not tc.gate_splits:
-        return _decide_splits_impl(state, tc)
-    N = tc.max_nodes
-    K = min(tc.check_tile, N)
-    due = (state["split_attr"] < 0) & (state["since_attempt"] >= tc.n_min)
+        return unfold(_decide_splits_impl(pool, tc))
+    K = min(tc.check_tile * (FN // tc.max_nodes), FN)
+    due = (pool["split_attr"] < 0) & (pool["since_attempt"] >= tc.n_min)
     dev = due.device
 
     def gathered(st):
         idx, s_k, a_k, b_k = gather_decide_tile(st, due, K, tc)
-        return (scatter_rows(N, idx, s_k), scatter_rows(N, idx, a_k),
-                scatter_rows(N, idx, b_k))
+        return (scatter_rows(FN, idx, s_k), scatter_rows(FN, idx, a_k),
+                scatter_rows(FN, idx, b_k))
 
     def idle(st):
-        return (torch.zeros(N, dtype=torch.bool, device=dev),
-                torch.zeros(N, dtype=i32, device=dev),
-                torch.zeros(N, dtype=i32, device=dev))
+        return (torch.zeros(FN, dtype=torch.bool, device=dev),
+                torch.zeros(FN, dtype=i32, device=dev),
+                torch.zeros(FN, dtype=i32, device=dev))
 
-    return gated_check(due.sum(), K, gathered,
-                       lambda s: _decide_splits_impl(s, tc), idle, state)
+    return unfold(gated_check(due.sum(), K, gathered,
+                              lambda st: _decide_splits_impl(st, tc), idle,
+                              pool))
 
 
 def apply_splits(state, split_mask, best_attr, best_bin, tc: TreeConfig,
@@ -364,8 +396,7 @@ def apply_splits(state, split_mask, best_attr, best_bin, tc: TreeConfig,
         return {k: st[k] for k in _SPLIT_KEYS}, do
 
     def keep(kept):
-        return kept, torch.zeros(tc.max_nodes, dtype=torch.bool,
-                                 device=split_mask.device)
+        return kept, torch.zeros_like(split_mask)
 
     new, do = compiled.gate(split_mask.any(), split, keep,
                             {k: state[k] for k in _SPLIT_KEYS})
@@ -380,19 +411,21 @@ _SPLIT_KEYS = ("split_attr", "split_bin", "children", "class_counts",
 
 def _apply_splits_impl(state, split_mask, best_attr, best_bin, tc: TreeConfig,
                        child_counts=None):
+    """The rewiring of ``apply_splits``, ungated; F trees on a leading axis
+    each split their own leaves from their own node count."""
     N = tc.max_nodes
-    rank = torch.cumsum(split_mask.to(i32), 0, dtype=i32) - 1    # [N]
-    base = state["n_nodes"]
+    rank = torch.cumsum(split_mask.to(i32), -1, dtype=i32) - 1  # [..., N]
+    base = state["n_nodes"][..., None]
     room = (base + 2 * (rank + 1)) <= N
     do = split_mask & room
     lchild = base + 2 * rank
     rchild = base + 2 * rank + 1
-    n_splits = do.sum(dtype=i32)
+    n_splits = do.sum(-1, dtype=i32)
 
     state = dict(state)
     state["split_attr"] = torch.where(do, best_attr, state["split_attr"])
     state["split_bin"] = torch.where(do, best_bin, state["split_bin"])
-    state["children"] = torch.where(do[:, None],
+    state["children"] = torch.where(do[..., None],
                                     torch.stack([lchild, rchild], -1),
                                     state["children"])
 
@@ -400,18 +433,25 @@ def _apply_splits_impl(state, split_mask, best_attr, best_bin, tc: TreeConfig,
     if child_counts is not None:
         left_cnt, right_cnt = child_counts
     else:
-        left_cnt, right_cnt = child_counts_from_stats(state["stats"],
-                                                      best_attr, best_bin)
+        stats = state["stats"]
+        left_cnt, right_cnt = (c.reshape(do.shape + c.shape[1:])
+                               for c in child_counts_from_stats(
+                                   stats.view((-1,) + stats.shape[-3:]),
+                                   best_attr.reshape(-1),
+                                   best_bin.reshape(-1)))
 
-    # scratch-row scatter: rows not splitting all write to a throwaway row
-    # N, which is dropped (many writes land there in one call)
-    l_idx = torch.where(do, lchild.clamp(0, N - 1), N).long()
-    r_idx = torch.where(do, rchild.clamp(0, N - 1), N).long()
+    # scratch-row scatter: each tree's rows not splitting all write to its
+    # throwaway row N, which is dropped (many writes land there in one call)
+    l_idx = fold(torch.where(do, lchild.clamp(0, N - 1), N), N + 1).long()
+    r_idx = fold(torch.where(do, rchild.clamp(0, N - 1), N), N + 1).long()
 
     def set_rows(arr, idx, val):
-        padded = torch.cat([arr, torch.zeros_like(arr[:1])], 0)
-        padded[idx] = val.to(arr.dtype)
-        return padded[:N]
+        tail = arr.shape[do.dim():]
+        rows = arr.reshape((-1, N) + tail)
+        padded = torch.cat([rows, torch.zeros_like(rows[:, :1])], 1)
+        padded.view((-1,) + tail)[idx] = val.reshape((-1,) + tail).to(
+            arr.dtype)
+        return padded[:, :N].reshape(arr.shape)
 
     cc = set_rows(state["class_counts"], l_idx, left_cnt)
     state["class_counts"] = set_rows(cc, r_idx, right_cnt)
@@ -422,16 +462,17 @@ def _apply_splits_impl(state, split_mask, best_attr, best_bin, tc: TreeConfig,
     # update_stats does; the MA processor holds no statistics tensor -- its
     # LS peers drop theirs on the broadcast 'drop' event instead
     if "stats" in state:
-        state["stats"] = state["stats"].masked_fill_(do[:, None, None, None],
-                                                     0.0)
+        state["stats"] = state["stats"].masked_fill_(
+            do[..., None, None, None], 0.0)
     state["since_attempt"] = torch.where(do, 0.0, state["since_attempt"])
-    state["n_nodes"] = base + 2 * n_splits
+    state["n_nodes"] = state["n_nodes"] + 2 * n_splits
     state["n_splits"] = state["n_splits"] + n_splits
     return state, do
 
 
 __all__ = ["NEG", "TreeConfig", "apply_splits", "child_counts_from_stats",
-           "decide_splits", "due_topk", "gated_check", "gather_decide_tile",
-           "hoeffding_bound", "init_tree", "predict", "restack", "route",
+           "decide_splits", "due_topk", "fold", "gated_check",
+           "gather_decide_tile", "hoeffding_bound", "init_tree", "predict",
+           "route",
            "route_members", "scatter_rows", "split_gains", "top_k",
            "update_stats", "update_stats_members", "vote"]

@@ -64,14 +64,20 @@ class VHT:
         """Prequential micro-batch step: test then train.
 
         Returns (state, metrics) with metrics = {correct, seen, dropped,
-        n_nodes}, each a 0-dim f32 tensor on the state's device.
+        n_nodes}, each a 0-dim f32 tensor on the state's device.  F trees
+        stacked on a leading axis (a fleet's tenants, ``ml.fleet``; the
+        shards of ``ShardingEnsemble``) step at once on their own batches,
+        xbin [F, B, m] and y [F, B], each kernel launched once for all of
+        them; the metrics are then [F], and row f of the state and of the
+        metrics is tree f's own step, bit for bit.
         """
         tc = self.tc
+        lead, B = y.shape[:-1], y.shape[-1]
         pred, leaf = htree.predict(state, xbin, tc)
-        correct = (pred == y).to(f32).sum()
+        correct = (pred == y).to(f32).sum(-1)
 
-        pending_here = state["pending"][leaf.long()]
-        dropped = torch.zeros((), dtype=f32, device=y.device)
+        pending_here = torch.gather(state["pending"], -1, leaf.long())
+        dropped = torch.zeros(lead, dtype=f32, device=y.device)
         if tc.split_delay == 0:
             w = torch.ones(y.shape, dtype=f32, device=y.device)
         elif tc.buffer_size:
@@ -80,7 +86,7 @@ class VHT:
             state = self._buffer_add(state, xbin, y, pending_here)
         else:
             w = torch.where(pending_here, 0.0, 1.0)      # wok: shed load
-            dropped = pending_here.to(f32).sum()
+            dropped = pending_here.to(f32).sum(-1)
 
         state = htree.update_stats(state, leaf, xbin, y, w, tc)
 
@@ -106,16 +112,18 @@ class VHT:
         if tc.buffer_size:
             state = self._replay_if(state, applied)
         metrics = {"correct": correct,
-                   "seen": torch.full((), y.shape[0], dtype=f32,
-                                      device=y.device),
+                   "seen": torch.full(lead, B, dtype=f32, device=y.device),
                    "dropped": dropped,
                    "n_nodes": state["n_nodes"].to(f32)}
         return state, metrics
 
     def _apply_pending(self, state):
+        """Count down the pending decisions and apply the matured ones ->
+        (state, whether a split landed: 0-dim, or [F] for F trees)."""
         tc = self.tc
         if tc.split_delay == 0:
-            return state, torch.zeros((), dtype=torch.bool,
+            return state, torch.zeros(state["pending"].shape[:-1],
+                                      dtype=torch.bool,
                                       device=state["pending"].device)
         state = dict(state)
         timer = torch.where(state["pending"], state["pending_timer"] - 1,
@@ -125,7 +133,7 @@ class VHT:
         state, did = htree.apply_splits(
             state, mature, state["pending_attr"], state["pending_bin"], tc)
         state["pending"] = state["pending"] & ~mature
-        return state, did.any()
+        return state, did.any(-1)
 
     # ---------------------------------------------------- wk(z) buffering
 
@@ -133,28 +141,35 @@ class VHT:
         tc = self.tc
         state = dict(state)
         Z = tc.buffer_size
-        B = y.shape[0]
+        B = y.shape[-1]
         dev = y.device
         # compact the masked instances to the front (stable, as jnp.argsort
         # is), then write a window
-        order = torch.argsort((~mask).to(i32), stable=True)
-        xs = xbin[order]
-        ys = y[order]
-        k = mask.sum(dtype=i32)
+        order = torch.argsort((~mask).to(i32), dim=-1, stable=True)
+        xs = torch.gather(xbin, -2, order[..., None].expand_as(xbin))
+        ys = torch.gather(y, -1, order)
+        k = torch.clamp(mask.sum(-1, dtype=i32), max=Z)
         ar = torch.arange(B, dtype=i32, device=dev)
-        idx = (state["buf_n"] + ar) % Z
-        take = ar < torch.clamp(k, max=Z)
-        write_idx = torch.where(take, idx, Z).long()     # scratch row Z
-        bx = torch.cat([state["buf_x"], torch.zeros((1, tc.n_attrs), dtype=i32,
-                                                    device=dev)], 0)
-        by = torch.cat([state["buf_y"], torch.zeros(1, dtype=i32, device=dev)])
-        bv = torch.cat([state["buf_valid"],
-                        torch.zeros(1, dtype=torch.bool, device=dev)])
-        bx[write_idx] = xs
-        by[write_idx] = ys
-        bv.index_fill_(0, write_idx, True)   # a scalar, not a host tensor
-        state["buf_x"], state["buf_y"], state["buf_valid"] = bx[:Z], by[:Z], bv[:Z]
-        state["buf_n"] = (state["buf_n"] + torch.clamp(k, max=Z)) % max(Z, 1)
+        idx = (state["buf_n"][..., None] + ar) % Z
+        take = ar < k[..., None]
+        # each ring's scratch row Z, its rings flattened (htree.fold)
+        write_idx = htree.fold(torch.where(take, idx, Z), Z + 1).long()
+
+        def padded(buf):
+            return torch.cat([buf, torch.zeros_like(buf[..., :1])], -1)
+
+        bx = torch.cat([state["buf_x"], torch.zeros_like(
+            state["buf_x"][..., :1, :])], -2)
+        by = padded(state["buf_y"])
+        bv = padded(state["buf_valid"])
+        bx.view(-1, tc.n_attrs)[write_idx] = xs.reshape(-1, tc.n_attrs)
+        by.view(-1)[write_idx] = ys.reshape(-1)
+        bv.view(-1).index_fill_(0, write_idx, True)   # a scalar, not a host tensor
+        # contiguous, as the kernels take the ring (the replay routes it)
+        state["buf_x"] = bx[..., :Z, :].contiguous()
+        state["buf_y"] = by[..., :Z].contiguous()
+        state["buf_valid"] = bv[..., :Z].contiguous()
+        state["buf_n"] = (state["buf_n"] + k) % max(Z, 1)
         return state
 
     def _replay_if(self, state, applied):
@@ -162,6 +177,7 @@ class VHT:
         tc = self.tc
         state = dict(state)
         leaf = htree.route(state, state["buf_x"], tc)
+        applied = applied[..., None]
         w = torch.where(state["buf_valid"] & applied, 1.0, 0.0)
         state = htree.update_stats(state, leaf, state["buf_x"],
                                    state["buf_y"], w, tc)
@@ -189,9 +205,9 @@ class ShardingEnsemble:
     paper demonstrates at 20k dense attributes.  The vote routes the whole
     batch through the p trees in one ``tree_route`` launch; member i then
     trains on the i-th of p equal shards of the batch (the remainder of
-    ``B // p`` is not trained on) through the VHT step, with
-    ``split_delay=0, buffer_size=0``.  The members' statistics are updated
-    in place."""
+    ``B // p`` is not trained on) through the VHT step of the p trees at
+    once, with ``split_delay=0, buffer_size=0``.  The members' statistics
+    are updated in place."""
 
     def __init__(self, tc: TreeConfig, p: int, device=None):
         self.tc = dataclasses.replace(tc, split_delay=0, buffer_size=0)
@@ -212,9 +228,7 @@ class ShardingEnsemble:
         n = (B // p) * p
         xs = xbin[:n].reshape(p, B // p, -1)
         ys = y[:n].reshape(p, B // p)
-        members = [self._vht.step({k: v[i] for k, v in states.items()},
-                                  xs[i], ys[i])[0] for i in range(p)]
-        states = htree.restack(states, members)
+        states, _ = self._vht.step(states, xs, ys)
         return states, {"correct": correct,
                         "seen": torch.full((), B, dtype=f32, device=y.device),
                         "dropped": torch.zeros((), dtype=f32, device=y.device),

@@ -12,7 +12,12 @@ statistics scatter, no split or expansion check, no PRNG draw:
     over the M trees) and the step's majority vote, ``htree.vote``;
   * AMRules, VAMR and HAMR: the coverage product, the first covering rule
     and the head mean (the drift statistics and expansions never run);
-  * CluStream: the nearest macro centroid (``clustream.assign``).
+  * CluStream: the nearest macro centroid (``clustream.assign``);
+  * a ``LearnerFleet`` of VHT or CluStream: ``f(state, x, tenant) ->
+    pred``, row i answered by tenant ``tenant[i]``'s model.  For VHT the
+    rows go through their tenants' trees in one ``tree_route_rows``
+    launch (a tree per row), then a class-count read; for CluStream each
+    row takes its tenant's macro centroids.
 
 Each is op for op its training step's predict section, so a snapshot
 published at a chunk boundary answers the next batch as the training loop
@@ -27,8 +32,8 @@ read fixed buffers while the snapshot changes at every chunk.
 
 ``reference_predict`` is the oracle of the tests: the plain versions
 (``tree_route_ref``, the broadcast distances), written out apart from the
-fast path.  A ``LearnerFleet`` has no fast path in the port: fleets are
-ROADMAP section 1 item 8.
+fast path; for a fleet it slices each row's tenant out and answers the
+rows one at a time.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.tree_route.ops import tree_route_rows
 from repro_torch.kernels.tree_route.ref import tree_route_ref
 from repro_torch.ml import amrules as _amrules
 from repro_torch.ml import clustream as _clustream
@@ -43,6 +49,7 @@ from repro_torch.ml import htree as _htree
 from repro_torch.ml.amrules import AMRules, HAMR
 from repro_torch.ml.clustream import CluStream
 from repro_torch.ml.ensemble import OzaEnsemble
+from repro_torch.ml.fleet import LearnerFleet
 from repro_torch.ml.vht import VHT
 
 i32 = torch.int32
@@ -82,24 +89,43 @@ def _clustream_predict():
     return predict
 
 
+def _fleet_vht_predict(tc):
+    def predict(state, xbin, tenant):
+        trees = state["tenant"]
+        leaf = tree_route_rows(trees["split_attr"], trees["split_bin"],
+                               trees["children"], xbin, tenant,
+                               max_depth=tc.max_depth)           # [R]
+        counts = trees["class_counts"][tenant.long(), leaf.long()]
+        return torch.argmax(counts, dim=-1).to(i32)
+    return predict
+
+
+def _fleet_clustream_predict():
+    def predict(state, x, tenant):
+        macro = state["tenant"]["macro"][tenant.long()]          # [R, k, d]
+        d2 = _clustream.pairwise_d2(x[:, None, :], macro)       # [R, 1, k]
+        return torch.argmin(d2[:, 0], -1).to(i32)
+    return predict
+
+
 def _refuse(learner):
-    name = type(learner).__name__
-    if name == "LearnerFleet":
-        raise TypeError(
-            "a LearnerFleet has no predict path in the port: fleets are "
-            "ROADMAP section 1 item 8")
     raise TypeError(
-        f"no predict-only fast path for {name}; expected VHT, "
-        "OzaEnsemble, AMRules/VAMR/HAMR, or CluStream")
+        f"no predict-only fast path for {type(learner).__name__}; expected "
+        "VHT, OzaEnsemble, AMRules/VAMR/HAMR, CluStream, or a LearnerFleet")
 
 
 def make_predict_fn(learner, *, jit: bool = True):
     """The predict-only fast path of ``learner``'s family: ``f(state, x)
     -> pred`` for a learner state (a published ``Snapshot.state``) and a
     batch of model inputs (binned int32 attributes for the tree and rule
-    families, float32 features for CluStream).  Eager whatever ``jit``
-    says (module docstring)."""
+    families, float32 features for CluStream).  For a ``LearnerFleet``,
+    ``f(state, x, tenant) -> pred`` with ``tenant`` [B] int32 tenant ids.
+    Eager whatever ``jit`` says (module docstring)."""
     del jit
+    if isinstance(learner, LearnerFleet):
+        if isinstance(learner.learner, VHT):
+            return _fleet_vht_predict(learner.learner.tc)
+        return _fleet_clustream_predict()
     if isinstance(learner, VHT):
         return _vht_predict(learner.tc)
     if isinstance(learner, OzaEnsemble):
@@ -111,10 +137,20 @@ def make_predict_fn(learner, *, jit: bool = True):
     _refuse(learner)
 
 
-def reference_predict(learner, state, x):
+def reference_predict(learner, state, x, tenant=None):
     """The oracle's prediction, through the plain versions: the trees
     routed by ``tree_route_ref``, CluStream's distances by broadcasting,
-    the documented formula elsewhere."""
+    the documented formula elsewhere.  For a fleet, ``tenant`` names whose
+    model answers each row: each row's tenant state is sliced out and the
+    row answered alone."""
+    if isinstance(learner, LearnerFleet):
+        if tenant is None:
+            raise ValueError("fleet reference_predict needs tenant ids")
+        return torch.stack([
+            reference_predict(learner.learner,
+                              learner.tenant_state(state, int(t)),
+                              x[i][None])[0]
+            for i, t in enumerate(torch.as_tensor(tenant).tolist())])
     if isinstance(learner, VHT):
         leaf = tree_route_ref(state["split_attr"][None],
                               state["split_bin"][None],

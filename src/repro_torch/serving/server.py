@@ -23,6 +23,10 @@ its evaluators, recast as a serving system.
     rejected + pending``.
   * Degradation: each answer carries its snapshot's version and chunk,
     its staleness in chunks and the publisher's ``degraded`` flag.
+  * Tenant routing: a server over a ``LearnerFleet`` takes ``tenant=`` with
+    every request and answers it from that tenant's model; a batch mixes
+    tenants and goes through one predict call (``serving.predict``'s fleet
+    path), and each answer's meta names its tenant.
 
 On the card the dispatcher predicts on a CUDA stream of its own, so a
 batch does not queue behind the training chunks on the default stream;
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import _flatten
+from repro_torch.ml.fleet import LearnerFleet
 from repro_torch.serving.predict import make_predict_fn
 
 
@@ -77,10 +82,12 @@ class Request:
     chunk, staleness in chunks, degraded flag, latency, batch size)."""
 
     __slots__ = ("x", "deadline", "submitted_at", "status", "pred", "meta",
-                 "_done")
+                 "tenant", "_done")
 
-    def __init__(self, x, deadline: float, submitted_at: float):
+    def __init__(self, x, deadline: float, submitted_at: float,
+                 tenant: int | None = None):
         self.x = x
+        self.tenant = tenant
         self.deadline = deadline
         self.submitted_at = submitted_at
         self.status = "pending"
@@ -107,6 +114,8 @@ class ModelServer:
         if self.cfg.max_batch < 1 or self.cfg.queue_limit < 1:
             raise ValueError("max_batch and queue_limit must be >= 1")
         self._fn = make_predict_fn(learner)
+        # a fleet's requests carry a tenant id, which routes each row
+        self._fleet = learner if isinstance(learner, LearnerFleet) else None
         self._clock = clock
         self._q: queue.Queue = queue.Queue(maxsize=self.cfg.queue_limit)
         self._lock = threading.Lock()
@@ -169,15 +178,25 @@ class ModelServer:
                tenant: int | None = None) -> Request:
         """Admit one request (``x``: one instance's model input, no batch
         axis).  Never blocks: a full queue answers ``overloaded`` at once,
-        no snapshot yet or a stopped server ``unavailable``.  ``tenant``
-        (a fleet's routing, ROADMAP section 1 item 8) is refused."""
-        if tenant is not None:
-            raise TypeError("tenant routing serves a LearnerFleet, which the "
-                            "port does not have yet (ROADMAP section 1 item "
-                            "8)")
+        no snapshot yet or a stopped server ``unavailable``.  A server over
+        a ``LearnerFleet`` requires ``tenant``, the id of the tenant whose
+        model answers; the request is refused (``ValueError``) before any
+        accounting without one, with one out of range, or with one on a
+        server of a single learner."""
+        if self._fleet is not None:
+            if tenant is None:
+                raise ValueError(
+                    "this server serves a LearnerFleet: submit(..., "
+                    "tenant=<id>) is required to route the request")
+            if not 0 <= int(tenant) < self._fleet.n_tenants:
+                raise ValueError(
+                    f"tenant {tenant} outside [0, {self._fleet.n_tenants})")
+            tenant = int(tenant)
+        elif tenant is not None:
+            raise ValueError("tenant routing requires a LearnerFleet")
         now = self._clock()
         dl = self.cfg.deadline_ms if deadline_ms is None else deadline_ms
-        r = Request(np.asarray(x), now + dl / 1e3, now)
+        r = Request(np.asarray(x), now + dl / 1e3, now, tenant=tenant)
         with self._lock:
             self.submitted += 1
         if self.publisher.current() is None:
@@ -228,18 +247,24 @@ class ModelServer:
         self._serve_batch(batch)
         return len(batch)
 
-    def _predict(self, snap, xs):
-        """The predictions for the rows ``xs`` (numpy) from ``snap``, read
-        on the host."""
+    def _predict(self, snap, xs, tenants=None):
+        """The predictions for the rows ``xs`` (numpy; for a fleet, with
+        their tenant ids ``tenants``) from ``snap``, read on the host."""
         dev = next(x.device for x in _flatten(snap.state)[0]
                    if isinstance(x, torch.Tensor))
+
+        def run():
+            args = [torch.from_numpy(xs).to(dev)]
+            if tenants is not None:
+                args.append(torch.from_numpy(tenants).to(dev))
+            return self._fn(snap.state, *args)
+
         if dev.type != "cuda":
-            return self._fn(snap.state, torch.from_numpy(xs).to(dev)).numpy()
+            return run().numpy()
         if self._cuda_stream is None:
             self._cuda_stream = torch.cuda.Stream(dev)
         with torch.cuda.stream(self._cuda_stream):
-            pred = self._fn(snap.state, torch.from_numpy(xs).to(dev))
-            return pred.cpu().numpy()
+            return run().cpu().numpy()
 
     def _serve_batch(self, batch):
         now = self._clock()
@@ -257,12 +282,17 @@ class ModelServer:
                 self._finish(r, UNAVAILABLE, reason="no_snapshot")
             return
         xs = np.stack([r.x for r in live])
+        tenants = (None if self._fleet is None else
+                   np.asarray([r.tenant for r in live], np.int32))
         pad = self.cfg.max_batch - xs.shape[0]
         if pad:
             # a real row, never zeros or NaN: the padded rows go through
             # the same predict, and their answers are dropped
             xs = np.concatenate([xs, np.repeat(xs[-1:], pad, axis=0)], 0)
-        preds = self._predict(snap, np.ascontiguousarray(xs))
+            if tenants is not None:
+                tenants = np.concatenate([tenants,
+                                          np.repeat(tenants[-1:], pad)])
+        preds = self._predict(snap, np.ascontiguousarray(xs), tenants)
         stale = max(0, self.publisher.train_cursor - snap.chunk_index)
         degraded = self.publisher.degraded()
         done = self._clock()
@@ -278,6 +308,8 @@ class ModelServer:
                 "latency_ms": (done - r.submitted_at) * 1e3,
                 "batch_size": len(live),
             }
+            if r.tenant is not None:
+                r.meta["tenant"] = r.tenant
             self._finish(r, ANSWERED)
             if degraded:
                 with self._lock:

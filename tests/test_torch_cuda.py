@@ -17,7 +17,12 @@ waiting on events (no device-wide wait off the main thread) while a
 ModelServer answers, a snapshot unchanged across compiled chunks, a
 short batch's capture while the server answers, the predict fast path
 against the plain one, and a capture that survives the garbage collector
-freeing another graph.  Every test here is marked
+freeing another graph; the fleet forms of tree_route (a batch per tree,
+a tree per row) and of segment_sum (a sum per tenant) against their plain
+versions at a fleet of 1000 tenants and at other shapes, and fleets of
+VHT and CluStream on the card: compiled against eager against the plain
+versions, each tenant's row against its learner alone, the predict and
+the server by tenant.  Every test here is marked
 ``cuda`` and skips without a CUDA device; the file imports nothing of JAX,
 so it runs where JAX is not installed:
 
@@ -1307,3 +1312,234 @@ def test_a_capture_survives_the_collector_freeing_another_graph(cuda):
         kept.clear()
         state, _ = step(zeros, ones)
         assert torch.equal(state["a"], ones)
+
+
+# ----------------------------------------------------------------- fleets
+
+def _fleet_trees(F, N, m, nb, seed):
+    """F random trees of up to N nodes (a random number of splits each)."""
+    rng = np.random.RandomState(seed)
+    sa = np.full((F, N), -1, np.int32)
+    sb = np.zeros((F, N), np.int32)
+    ch = np.zeros((F, N, 2), np.int32)
+    for t in range(F):
+        n_nodes, leaves = 1, [0]
+        for _ in range(rng.randint((N - 1) // 2 + 1)):
+            node = leaves.pop(rng.randint(len(leaves)))
+            sa[t, node], sb[t, node] = rng.randint(m), rng.randint(nb)
+            ch[t, node] = (n_nodes, n_nodes + 1)
+            leaves += [n_nodes, n_nodes + 1]
+            n_nodes += 2
+    return sa, sb, ch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,N,m,nb,B", [(1000, 31, 8, 4, 16),
+                                        (3, 255, 1000, 8, 512),
+                                        (7, 63, 12, 8, 5)])
+def test_tree_route_batched_matches_plain(cuda, F, N, m, nb, B):
+    from repro_torch.kernels.tree_route.ops import tree_route_batched
+    from repro_torch.kernels.tree_route.ref import tree_route_batched_ref
+    sa, sb, ch = _fleet_trees(F, N, m, nb, F)
+    xbin = np.random.RandomState(1).randint(0, nb, (F, B, m)).astype(np.int32)
+    args = [_t(a).to(cuda) for a in (sa, sb, ch, xbin)]
+    out = tree_route_batched(*args, max_depth=24)
+    assert torch.equal(out, tree_route_batched_ref(*args, 24))
+    assert launches()["tree_route_batched"] == 1
+    assert launches()["tree_route"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,N,m,nb,R", [(1000, 31, 8, 4, 16),
+                                        (5, 255, 1000, 8, 300)])
+def test_tree_route_rows_matches_plain(cuda, F, N, m, nb, R):
+    from repro_torch.kernels.tree_route.ops import tree_route_rows
+    from repro_torch.kernels.tree_route.ref import tree_route_rows_ref
+    rng = np.random.RandomState(2)
+    sa, sb, ch = _fleet_trees(F, N, m, nb, 3)
+    xbin = rng.randint(0, nb, (R, m)).astype(np.int32)
+    member = rng.randint(-1, F + 1, R).astype(np.int32)
+    args = [_t(a).to(cuda) for a in (sa, sb, ch, xbin, member)]
+    out = tree_route_rows(*args, max_depth=24)
+    assert torch.equal(out, tree_route_rows_ref(*args, 24))
+    assert launches()["tree_route_rows"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,S,C,B", [(1000, 101, 64, 16), (1000, 101, 3, 16),
+                                     (1000, 4, 1, 16), (6, 300, 70, 700),
+                                     (3, 9, 4096, 40), (2, 1, 33, 1000)])
+def test_segment_sum_tenant_bit_identical(cuda, F, S, C, B):
+    """The tenant form against its plain version: each tenant's rows
+    (segments S and -1 dropped) in its own segments, in instance order,
+    bit for bit, the segments no row hits left as they were; more than 32
+    columns take more blocks, more than 256 rows a tenant more tiles (a
+    segment hit in several is summed on from tile to tile), and S = 1
+    chains a third of 1000 rows into one segment."""
+    from repro_torch.kernels.rule_stats.ops import segment_sum_tenant
+    from repro_torch.kernels.rule_stats.ref import segment_sum_tenant_ref
+    rng = np.random.RandomState(S + C)
+    seg = _t(rng.randint(-1, S + 1, F * B).astype(np.int32)).to(cuda)
+    vals = _t(rng.randn(F * B, C).astype(np.float32)).to(cuda)
+    out = _t(rng.randn(F, S, C).astype(np.float32)).to(cuda)
+    want = segment_sum_tenant_ref(out.clone(), seg, vals)
+    got = segment_sum_tenant(out, seg, vals)
+    assert torch.equal(_bits(got), _bits(want))
+    assert launches()["segment_sum_tenant"] == 1
+
+
+# trees that split from the second batch on (any positive gain)
+GROW = {"n_min": 8, "tau": 0.5}
+
+
+def _fleet_vht(cuda, **kw):
+    from repro_torch.ml import VHT, VHTConfig
+    from repro_torch.ml.htree import TreeConfig
+    tc = dict(n_attrs=8, n_bins=4, n_classes=2, max_nodes=31, n_min=16,
+              delta=0.05, tau=0.1)
+    return VHT(VHTConfig(TreeConfig(**{**tc, **kw})), device=cuda)
+
+
+def _fleet_stream(F, T, m=8, nb=4, seed=11):
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, nb, (T, F, 16, m)).astype(np.int32)
+    y = ((x[..., 0] + x[..., 1]) > nb - 1).astype(np.int32)
+    flip = rng.uniform(size=y.shape) < 0.1
+    return {"x": x, "y": np.where(flip, 1 - y, y).astype(np.int32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [{}, {"split_delay": 2},
+                                     {"split_delay": 2, "buffer_size": 8}],
+                         ids=["local", "wok", "wk8"])
+def test_vht_fleet_compiled_eager_and_cpu_alike(cuda, variant):
+    """A 64-tenant VHT fleet, 8 steps of 16 in chunks of 2: compiled on
+    the card (JitEngine), eager on the card (LocalEngine) and on the CPU
+    (the plain versions) give the same state and metric columns, bit for
+    bit; the eager card run launches tree_route_batched and vht_stats once
+    a step each (twice with wk(z)'s replay), whatever the tenant count."""
+    from repro_torch.core.engines import JitEngine, LocalEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.ml import LearnerFleet
+
+    pay = {k: _t(v) for k, v in _fleet_stream(64, 8).items()}
+    fleet = LearnerFleet(_fleet_vht(cuda, **GROW, **variant), 64)
+    cpu_fleet = LearnerFleet(_fleet_vht("cpu", **GROW, **variant), 64)
+    stream = ChunkedStream(pay, 2, device=cuda)
+    eng, loc = JitEngine(), LocalEngine()
+    carry, outs = eng.run_stream_chunked(fleet, eng.init(fleet), stream)
+    reset_launches()
+    states, eager = loc.run_stream(fleet, loc.init(fleet), stream)
+    per_step = 2 if variant.get("buffer_size") else 1
+    assert launches()["tree_route_batched"] == 8 * per_step
+    assert launches()["vht_stats"] == 8 * per_step
+    assert launches()["tree_route"] == 0
+    cpu_states, cpu = loc.run_stream(cpu_fleet, loc.init(cpu_fleet),
+                                     ChunkedStream(pay, 2, to_device=False))
+    eager = stack_outputs(eager)["metrics"]
+    cpu = stack_outputs(cpu)["metrics"]
+    _assert_bits_equal(carry["states"], states)
+    _assert_bits_equal({k: v.cpu() for k, v in eager.items()}, cpu)
+    _assert_bits_equal(outs["metrics"], eager)
+    got = {k: v.cpu() for k, v in states["learnerfleet"]["tenant"].items()}
+    _assert_bits_equal(got, cpu_states["learnerfleet"]["tenant"])
+    assert int(got["n_splits"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["step", "boundary"])
+def test_clustream_fleet_kernels_and_plain_alike(cuda, mode, monkeypatch):
+    """A 32-tenant fleet of CluStream d32-K100 (period 32, aligned to
+    chunks of 2 batches of 16), compiled and eager with the tenant form of
+    segment_sum, and eager with its plain version: the same state and
+    metrics bit for bit; each tenant's cluster features equal its learner
+    run alone on the card (macro centroids within rtol 1e-6)."""
+    import functools
+    from repro_torch.core import prng
+    from repro_torch.core.engines import JitEngine, LocalEngine
+    from repro_torch.core.evaluation import stack_outputs
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.kernels.rule_stats.ops import batch_sum_tenant
+    from repro_torch.kernels.rule_stats.ref import segment_sum_tenant_ref
+    from repro_torch.ml import CluStream, CluStreamConfig, LearnerFleet
+    from repro_torch.ml import clustream
+
+    F, T = 32, 8
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(size=(8, 32))
+    x = (centers[rng.integers(0, 8, (T, F, 16))]
+         + 0.05 * rng.standard_normal((T, F, 16, 32))).astype(np.float32)
+    learner = CluStream(CluStreamConfig(n_dims=32, n_micro=100, n_macro=8,
+                                        period=32, macro_impl=mode),
+                        device=cuda)
+    fleet = LearnerFleet(learner, F)
+    stream = ChunkedStream({"x": _t(x)}, 2, device=cuda)
+    eng, loc = JitEngine(), LocalEngine()
+    carry, outs = eng.run_stream_chunked(fleet, eng.init(fleet), stream)
+    reset_launches()
+    states, eager = loc.run_stream(fleet, loc.init(fleet), stream)
+    assert launches()["segment_sum_tenant"] >= 3 * T
+    assert launches()["segment_sum"] == 0
+    monkeypatch.setattr(clustream, "segment_sum_tenant",
+                        segment_sum_tenant_ref)
+    monkeypatch.setattr(clustream, "batch_sum_tenant", functools.partial(
+        batch_sum_tenant, scatter=segment_sum_tenant_ref))
+    reset_launches()
+    plain_states, plain = loc.run_stream(fleet, loc.init(fleet), stream)
+    assert sum(launches().values()) == 0
+    monkeypatch.undo()
+    eager, plain = stack_outputs(eager), stack_outputs(plain)
+    _assert_bits_equal(outs["metrics"], eager["metrics"])
+    _assert_bits_equal(plain["metrics"], eager["metrics"])
+    _assert_bits_equal(carry["states"], states)
+    _assert_bits_equal(plain_states, states)
+    packed = states["learnerfleet"]
+    assert float(packed["tenant"]["macro_t"].min()) == T * 16
+    keys = fleet.tenant_keys(prng.PRNGKey(0, cuda))    # init(None)
+    for f in (0, F // 2, F - 1):
+        one = loc.init(learner)
+        one["clustream"] = learner.init(keys[f])
+        alone, _ = loc.run_stream(learner, one, ChunkedStream(
+            {"x": _t(x[:, f])}, 2, device=cuda))
+        row = fleet.tenant_state(packed, f)
+        for k in ("n", "ls", "ss", "lt", "st", "t", "macro_t"):
+            assert torch.equal(_bits(row[k]), _bits(alone["clustream"][k])), k
+        torch.testing.assert_close(row["macro"], alone["clustream"]["macro"],
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fleet_predict_and_server_route_by_tenant(cuda):
+    """A trained 64-tenant VHT fleet on the card: the tenant-indexed
+    predict (one tree_route_rows launch) equals reference_predict, and a
+    ModelServer answers a full batch of mixed tenants in one poll."""
+    from repro_torch.core.engines import JitEngine
+    from repro_torch.data.pipeline import ChunkedStream
+    from repro_torch.ml import LearnerFleet
+    from repro_torch.serving import (ModelServer, ServeConfig,
+                                     SnapshotPublisher, make_predict_fn,
+                                     model_state_of, reference_predict)
+
+    pay = {k: _t(v) for k, v in _fleet_stream(64, 8).items()}
+    fleet = LearnerFleet(_fleet_vht(cuda), 64)
+    eng = JitEngine()
+    carry, _ = eng.run_stream_chunked(fleet, eng.init(fleet),
+                                      ChunkedStream(pay, 2, device=cuda))
+    state = model_state_of(carry)
+    rows = pay["x"][7, :16, 0].to(cuda)
+    tenants = torch.arange(0, 64, 4, dtype=torch.int32, device=cuda)
+    reset_launches()
+    got = make_predict_fn(fleet)(state, rows, tenants)
+    assert launches()["tree_route_rows"] == 1
+    want = reference_predict(fleet, state, rows, tenant=tenants)
+    assert torch.equal(got, want)
+    pub = SnapshotPublisher()
+    assert pub.publish(3, state)
+    srv = ModelServer(fleet, pub, ServeConfig(max_batch=16, deadline_ms=6e4),
+                      start=False)
+    reqs = [srv.submit(rows[i].cpu().numpy(), tenant=int(tenants[i]))
+            for i in range(16)]
+    assert srv.poll() == 16
+    assert [int(r.pred) for r in reqs] == want.cpu().tolist()
+    assert [r.meta["tenant"] for r in reqs] == tenants.cpu().tolist()

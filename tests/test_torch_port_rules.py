@@ -18,14 +18,19 @@ torch.set_num_threads(1)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import COUNTED, KERNELS, launches, reset_launches
-from repro_torch.kernels.rule_stats.ops import segment_sum
+from repro_torch.kernels.rule_stats.ops import segment_sum, segment_sum_tenant
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
+from repro_torch.kernels.rule_stats.ref import (rule_stats_scatter_ref,
+                                                segment_sum_tenant_ref)
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.split_gain.ref import split_gain_ref
 from repro_torch.kernels.split_poisson.ops import split_poisson
 from repro_torch.kernels.split_poisson.ref import split_poisson_ref
-from repro_torch.kernels.tree_route.ref import tree_route_ref
+from repro_torch.kernels.tree_route.ops import (tree_route_batched,
+                                                tree_route_rows)
+from repro_torch.kernels.tree_route.ref import (tree_route_batched_ref,
+                                                tree_route_ref,
+                                                tree_route_rows_ref)
 from repro_torch.kernels.vht_stats.ref import stats_update_ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -191,7 +196,20 @@ def _cpu_inputs():
 
 NO_LAUNCHES = {"tree_route": 0, "vht_stats": 0, "split_gain": 0,
                "rule_stats": 0, "selective_scan": 0, "flash_attention": 0,
-               "segment_sum": 0, "split_poisson": 0}
+               "segment_sum": 0, "split_poisson": 0,
+               "tree_route_batched": 0, "tree_route_rows": 0,
+               "segment_sum_tenant": 0}
+
+
+def _fleet_inputs(xbin, leaf, mom):
+    """The fleet forms' inputs from _cpu_inputs': two trees (the one tree
+    twice) with a batch each, a tree per row, and two tenants' sums."""
+    sa = torch.tensor([[0, -1, -1], [-1, 0, 0]], dtype=torch.int32)
+    sb = torch.tensor([[1, 0, 0], [0, 0, 0]], dtype=torch.int32)
+    ch = torch.tensor([[[1, 2], [0, 0], [0, 0]]] * 2, dtype=torch.int32)
+    member = (leaf % 2).to(torch.int32)
+    out = torch.zeros((2, 8, 3))
+    return sa, sb, ch, xbin.reshape(2, 8, -1), member, out
 
 
 def _lm_inputs(device="cpu"):
@@ -238,6 +256,14 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     for got, want in zip(split_poisson(key, lam, (3, 16)),
                          split_poisson_ref(key, lam, (3, 16))):
         assert got.dtype == want.dtype and torch.equal(got, want)
+    fsa, fsb, fch, fxb, member, out = _fleet_inputs(xbin, leaf, mom)
+    assert torch.equal(tree_route_batched(fsa, fsb, fch, fxb, max_depth=4),
+                       tree_route_batched_ref(fsa, fsb, fch, fxb, 4))
+    assert torch.equal(tree_route_rows(fsa, fsb, fch, xbin, member,
+                                       max_depth=4),
+                       tree_route_rows_ref(fsa, fsb, fch, xbin, member, 4))
+    assert torch.equal(segment_sum_tenant(out.clone(), leaf, mom),
+                       segment_sum_tenant_ref(out.clone(), leaf, mom))
     assert launches() == NO_LAUNCHES
 
 
@@ -266,6 +292,14 @@ def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
     key, lam = _poisson_inputs("meta")
     with pytest.raises(ValueError):
         split_poisson(key, lam, (3, 16))
+    fsa, fsb, fch, fxb, member, out = [
+        t.to("meta") for t in _fleet_inputs(xbin, leaf, mom)]
+    with pytest.raises(ValueError):
+        tree_route_batched(fsa, fsb, fch, fxb, max_depth=4)
+    with pytest.raises(ValueError):
+        tree_route_rows(fsa, fsb, fch, xbin, member, max_depth=4)
+    with pytest.raises(ValueError):
+        segment_sum_tenant(out, leaf, mom)
     assert launches() == NO_LAUNCHES
 
 

@@ -371,8 +371,8 @@ def test_requests_before_first_snapshot_rejected_unavailable():
     assert r.done() and r.status == "unavailable"
     assert r.meta["reason"] == "no_snapshot"
     assert srv.status()["rejected_unavailable"] == 1
-    with pytest.raises(TypeError, match="item 8"):
-        srv.submit(_row(0), tenant=0)       # a fleet's routing
+    with pytest.raises(ValueError, match="requires a LearnerFleet"):
+        srv.submit(_row(0), tenant=0)       # routing needs a fleet
 
 
 def test_answers_report_staleness_and_degraded_truthfully():
