@@ -53,7 +53,7 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  included) must be bit for bit alike across the three.  The
                  main path also shows tree_route at M = 10 and split_poisson
                  (the members' Poisson weights, a kernel with no TPU
-                 counterpart, on its own line) against their plain versions
+                 counterpart) against their plain versions
                  with their device ms and bounds, the drift reset's device
                  ms, syncs and launches per step and the busy share, eager
                  against compiled.  Last, a short final batch (200 of 512
@@ -76,8 +76,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  mode a run with checkpoints, killed after its middle
                  checkpoint and resumed, must end as the uninterrupted
                  run.  Prints the wide segment_sum on the main path's last
-                 batch against its plain version, index_add_ and its
-                 bound, syncs per step (0 in a captured step) and the busy
+                 batch, and on its rows all in one segment, against its
+                 plain version, index_add_ and its bound, syncs per step (0 in a captured step) and the busy
                  share, eager against compiled.
   9. lm       -- the LM zoo's serving path at full width, one model at a
                  time: falcon_mamba_7b (64 Mamba-1 layers, d_model 4096) and
@@ -147,7 +147,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
                  and instances/s.
   12. result  -- one JSON line of per-kernel numbers (rule_stats as
                  segment_sum on its own line, timed on the CluStream CF
-                 scatter; the fleet forms on lines of their own), then, as
+                 scatter; split_poisson on the OzaBag path; the fleet
+                 forms on lines of their own), then, as
                  the last line, {"ok": true, "device": {...}}.
 
 Phases 4 to 9 also run each path compiled (src/repro_torch/core/
@@ -1480,7 +1481,7 @@ def ensemble_kernels(st, xb, smi):
     poisson = {"ms": kt["ms"], "call_ms": kt["call_ms"], "plain_ms": pt["ms"],
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                "ops": ops, "rounds": rounds, "max_draw": max_draw,
-               "library_ms": None}
+               "max_abs_err": max_abs_err(w_got, w_want), "library_ms": None}
     log(f"split_poisson [{M},{B}] (bagging, lam 1; {rounds} rounds, largest "
         f"draw {poisson['max_draw']}; bit for bit its plain version): device "
         f"ms {kt['ms']:.5f}, plain {pt['ms']:.5f} (its loop reads the host "
@@ -1695,7 +1696,8 @@ def kernel_cf_scatter(state, x, cc, smi):
     main path: [K + 1, 1, 1, 2d] from zeros, x | x^2 of the last batch by
     its segments.  Bit for bit its plain version; device ms beside its
     bound, the plain version's and index_add_'s (atomics' order: no
-    replacement).  The 3-column launch (1 | t | t^2) is timed too."""
+    replacement), and with the same rows all in one segment (one chain of
+    B adds a column).  The 3-column launch (1 | t | t^2) is timed too."""
     import torch
     from repro_torch.kernels.rule_stats.ops import segment_sum
     from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
@@ -1723,8 +1725,20 @@ def kernel_cf_scatter(state, x, cc, smi):
         scratch = torch.zeros((K + 1, C), device=x.device)
         idx = seg.long()
         lt = timed(lambda: scratch.index_add_(0, idx, vals))
-        # out read and written, seg and xbin read, vals read; one add each
-        moved = 2 * zeros.numel() * 4 + 2 * B * 4 + vals.numel() * 4
+        # the same rows all in one segment: one chain of B adds a column
+        one = torch.full_like(seg, 5)
+        got1 = segment_sum(zeros.clone(), one, xb, vals)
+        want1 = rule_stats_scatter_ref(zeros.clone(), one, xb, vals)
+        torch.cuda.synchronize()
+        require(torch.equal(got1.view(torch.int32), want1.view(torch.int32)),
+                f"segment_sum CF scatter {what}, one segment, differs from "
+                "its plain version")
+        ot = timed(lambda: segment_sum(work, one, xb, vals))
+        # vals, seg and xbin read once, and a read and a write of each
+        # segment's C sums that a row hits (the kernel writes no other);
+        # one add a value
+        hits = int(torch.unique(seg[(seg >= 0) & (seg <= K)]).numel())
+        moved = vals.numel() * 4 + 2 * B * 4 + 2 * hits * C * 4
         ops = B * C
         bound_ms, bound_by = bound(moved, ops)
         e = {"shape": [K + 1, 1, 1, C], "B": B, "ms": kt["ms"],
@@ -1733,14 +1747,17 @@ def kernel_cf_scatter(state, x, cc, smi):
              "library_call_ms": lt["call_ms"], "bytes": moved, "ops": ops,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "max_abs_err": max_abs_err(got, want),
-             "discarded": int((seg == K).sum())}
+             "discarded": int((seg == K).sum()), "segments_hit": hits,
+             "one_segment_ms": ot["ms"]}
         out[what] = e
         log(f"segment_sum CF scatter {what} [{K + 1},1,1,{C}] B={B} on the "
-            f"main path's last batch ({e['discarded']} discarded; bit for "
-            f"bit its plain version): device ms {kt['ms']:.5f}, plain "
-            f"{pt['ms']:.5f}, index_add_ {lt['ms']:.5f}, bound "
-            f"{bound_ms:.6f} ({bound_by}, {moved} bytes), kernel/bound "
-            f"{kt['ms'] / bound_ms:.1f}, call ms {kt['call_ms']:.5f} on {smi}")
+            f"main path's last batch ({e['discarded']} discarded, {hits} of "
+            f"{K + 1} segments hit; bit for bit its plain version): device "
+            f"ms {kt['ms']:.5f}, all rows in "
+            f"one segment {ot['ms']:.5f}, plain {pt['ms']:.5f}, index_add_ "
+            f"{lt['ms']:.5f}, bound {bound_ms:.6f} ({bound_by}, {moved} "
+            f"bytes), kernel/bound {kt['ms'] / bound_ms:.1f}, call ms "
+            f"{kt['call_ms']:.5f} on {smi}")
     return out
 
 
@@ -3654,6 +3671,18 @@ def main():
                  "source": "src/repro_torch/csrc/rule_stats.cu",
                  "replaces": replaces["rule_stats"],
                  "launches": cs_main["launches"]["segment_sum_wide"],
+                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                 "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+    # split_poisson on the ensembles' main path (OzaBag ADWIN dense-1000,
+    # one launch a step); it replaces no TPU kernel but the JAX package's
+    # jax.random.poisson call, which XLA runs
+    ens_main = ens[f"OzaBag adwin dense-{M_ATTRS}"]
+    e = ens_main["kernels"]["split_poisson"]
+    rows.append({"name": "split_poisson", "route": "cuda",
+                 "source": "src/repro_torch/csrc/split_poisson.cu",
+                 "replaces": "src/repro/ml/ensemble.py:178",
+                 "launches": ens_main["launches"]["split_poisson"],
                  "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                  "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                  "bound_by": e["bound_by"], "library_ms": e["library_ms"]})

@@ -11,10 +11,11 @@
 // columns of x | x^2 in one launch, the 3 of 1 | t | t^2 in another).  Up
 // to 8 columns (C) a thread keeps its cell's C sums in registers; 9 to
 // MAX_WIDE = 4096 columns take the wide form (rule_stats_wide_kernel,
-// below), a thread per (cell, column).  Both add in instance order.  A
-// fleet of F CluStreams takes the tenant form (segment_sum_tenant_kernel,
-// at the end): F independent segment sums in one launch, each tenant's
-// rows summed in its own segments, in instance order.
+// below), a lane per column of a block's slab of 32.  Both add in
+// instance order.  A fleet of F CluStreams takes the tenant form
+// (segment_sum_tenant_kernel, at the end): F independent segment sums in
+// one launch, each tenant's rows summed in its own segments, in instance
+// order.
 //
 // Replaces src/repro/kernels/rule_stats/kernel.py::rule_stats_pallas
 // (kernel.py:57, its pallas_call at :71), which wrote the scatter as a
@@ -72,6 +73,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -288,88 +290,140 @@ rule_stats_kernel(float* __restrict__ stats, const int* __restrict__ seg,
 }
 
 // The wide form, for C > 8 columns (CluStream's CF scatter: x and x^2 of
-// [B, d], 2d columns): blockIdx.z takes WIDE_COLS of the columns.  A
-// thread per (cell, column) pair, not per cell, since C sums do not fit a
-// thread's registers; each pair starts from its old value and adds its
-// cell's instances in instance order, as the narrow form does, so it
-// gives the same bits.  A tile is sorted as above (each column block
-// sorts it again: the sort is a few warp steps, the columns' reads are
-// the work), and mom is read from device memory, not staged: a tile of
-// 512 rows of 256 columns is 512 KB.  Consecutive threads take
-// consecutive columns of one cell, so a warp reads 128 contiguous bytes
-// of a row.  Each pair reads and writes its sum in stats once a tile in
-// which its cell has instances, so the tiles add in order.
+// [B, d], 2d columns; up to MAX_WIDE).  A block takes one attribute, a
+// range of at most WARPS * WIDE_WARP_CELLS = 16 cells and a slab of
+// WIDE_COLS = 32 of the columns (grid: ranges x m x column slabs, 136
+// blocks at d128-K256), a lane per column: so a warp adds one cell's 32
+// sums at a time, each starting from its old value and adding its cell's
+// instances in instance order, one __fadd_rn at a time, as the narrow form
+// does; it gives the same bits.
 //
 // What bounds it: CluStream's CF scatter at d128-K256 ([257, 1, 1, 256],
-// B = 512) reads 0.53 MB of rows and reads and writes 0.53 MB of sums,
-// 0.3 us at 3.35 TB/s; its adds are nothing.  The kernel is bound by the
-// chains of dependent reads and adds of the busiest segments (a blob
-// stream puts some hundred rows in one), a read from L2 each, eight in
-// flight, and by a block's cells taken a warp's worth at a time.  Blocks
-// of 32 columns (16 blocks) rather than 64 (8) halve the cells a warp
-// walks one after another: 0.0144 against 0.0193 ms on a batch spread
-// as a blob stream spreads it; 16 columns (32 blocks, each sorting the
-// batch again) took 0.0142 (tools/kernel_ab.py's CF scatter cases, on an
-// NVIDIA H100 80GB HBM3 at 700 W).  All the rows in one segment take
-// 0.045 ms whatever the blocks: a chain of 512 adds, each waiting on its
-// read.
-template <bool SMALL_BATCH>
-__device__ __forceinline__ void wide_pairs(float* __restrict__ stats,
-                                           const float* __restrict__ mom,
-                                           int m, int j, int bins, int C,
-                                           int c0, int ncell, int col0,
-                                           int ncols, const int* seg,
-                                           const int* xj, int R, int B,
-                                           const int* s_sorted,
-                                           const int* s_start,
-                                           const int* s_count, int base) {
-  for (int p = threadIdx.x; p < ncell * ncols; p += THREADS) {
-    const int local = p / ncols, col = col0 + p - local * ncols;
-    const int cell = c0 + local;
-    const int r = cell / bins, b = cell - r * bins;
-    float* out = stats + (((size_t)r * m + j) * bins + b) * C + col;
-    if (SMALL_BATCH) {
-      float acc = *out;
-      for (int i = 0; i < B; ++i) {
-        const int s = seg[i], xb = xj[(size_t)i * m];
-        const bool hit = s >= 0 && s < R && xb >= 0 && xb < bins &&
-                         s * bins + xb == cell;
-        const float v = mom[(size_t)i * C + col];
-        if (hit) acc = __fadd_rn(acc, v);
-      }
-      *out = acc;
-    } else {
-      const int n = s_count[local];
-      if (n == 0) continue;
-      const int* list = s_sorted + s_start[local];
-      const float* column = mom + (size_t)base * C + col;
-      float acc = *out;
-      // eight rows read ahead of their adds, as walk() does
-      int q = 0;
-      for (; q + 8 <= n; q += 8) {
-        float v[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = column[(size_t)list[q + k] * C];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc = __fadd_rn(acc, v[k]);
-      }
-      for (; q < n; ++q) acc = __fadd_rn(acc, column[(size_t)list[q] * C]);
-      *out = acc;
-    }
+// B = 512) reads 0.52 MB of rows and reads and writes only the sums of
+// the segments its rows hit (13 of 257 on a blob stream's batch, 0.03
+// MB), 0.17 us at 3.35 TB/s; its adds are nothing.  What the function itself
+// imposes is the busiest cell's chain of dependent adds (a blob stream
+// puts some hundred rows in one; all 512 in the worst case), a few cycles
+// an add when the values wait in shared memory.
+//
+// Design, per tile of TILE instances:
+//  1. cp.async stages seg and the xbin column, and on the first tile the
+//     block's old sums, [cells][32] floats;
+//  2. the tile is sorted by cell, stably (the narrow form's sort_tile);
+//     then cp.async gathers the values of the block's own instances, 32
+//     columns a row, in that order, so that each cell's rows lie one after
+//     another in shared memory (16-byte copies where C is a multiple of 4,
+//     4-byte ones else);
+//  3. warp w walks the cells w, w + 8: lane c adds column c of the cell's
+//     rows to the cell's sum in shared memory, in order, reading the next
+//     16 rows while it adds the current 16, so the chain waits on the
+//     adds.
+// The sums stay in shared memory across tiles, so B is not limited; after
+// the last tile each warp writes its hit cells' 32 sums back to stats in
+// one coalesced write, and a cell no instance hit is never written.  Each
+// block reads only its own instances' values, so small ranges, many
+// blocks and short walks cost no more reads of the batch; every block
+// sorts the tile, which the blocks do in parallel.  A warp walks its two
+// cells in their order: a longest-first order would change no warp's
+// total.
+//
+// Measured (tools/kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W; device ms
+// at d128-K256, blob-spread and all rows in one segment): this design
+// 0.0050 and 0.0066 (chip_smoke.py, on the main path's last batch: 0.0054
+// against index_add_'s 0.0040, in its atomics' order); the first
+// design, each row's value read from L2 in the chain, eight reads
+// in flight, in 16 blocks whose warps walked their cells one after
+// another, 0.0142 and 0.0447; the whole tile's 32 columns staged in every
+// block while it sorts and each cell's rows read through the sorted list,
+// 72 blocks of 29 cells, 0.0068 and 0.0080 (136 blocks: 0.0059, 0.0081):
+// issuing the 64 KB slab held each block's ids for about 2500 cycles, and
+// the chain took about 14 cycles a row.  Of this design's blocks (blob,
+// clock64 in an instrumented copy) the ids take some 1650 cycles, the
+// sort 1900, the gather 800 and the walks 1900; a warp with no list to
+// walk still takes some 850.  One cell a warp (264 blocks) took 0.0049 and
+// 0.0071, four (72 blocks) 0.0056 and 0.0067.
+//
+// A batch of at most SMALL instances keeps its own path: a thread per
+// (cell, column) pair reads every instance from device memory in order,
+// with no staging, sort or barrier.
+constexpr int WIDE_AHEAD = 16;          // rows read ahead of their adds
+constexpr int WIDE_WARP_CELLS = 2;      // cells a warp walks, at most
+
+// the dynamic shared memory of the wide form's staged path: the tile's
+// slab of values and the block's sums, [TILE + cr][WIDE_COLS] floats
+constexpr size_t wide_smem(int cr) {
+  return (size_t)(TILE + cr) * WIDE_COLS * sizeof(float);
+}
+
+// rows [0, rows) of WIDE_COLS-column slabs, row(i) the first of ncols
+// floats of row i in device memory, into dst [rows][WIDE_COLS] by
+// cp.async: eight threads a row in 16-byte copies when vec (ncols and
+// every row(i) a multiple of 4 floats, 16-byte aligned), else a warp a
+// row in 4-byte copies
+template <class Row>
+__device__ __forceinline__ void stage_slab(float* dst, int rows, int ncols,
+                                           bool vec, Row row) {
+  if (vec) {
+    const int p = 4 * (threadIdx.x & 7);
+    if (p < ncols)
+      for (int i = threadIdx.x >> 3; i < rows; i += THREADS / 8)
+        cp_async16(dst + i * WIDE_COLS + p, row(i) + p);
+  } else {
+    const int c = threadIdx.x & 31;
+    if (c < ncols)
+      for (int i = threadIdx.x >> 5; i < rows; i += WARPS)
+        cp_async4(dst + i * WIDE_COLS + c, row(i) + c);
   }
 }
 
+// acc plus v[q * WIDE_COLS] for q in [0, n), in order: the values of the
+// next WIDE_AHEAD rows are read while the current ones are added, and the
+// last fewer than WIDE_AHEAD all at once
+__device__ __forceinline__ float walk_rows(float acc, const float* v, int n) {
+  constexpr int A = WIDE_AHEAD;
+  int q = 0;
+  if (n >= A) {
+    float cur[A];                       // the rows [q, q + A)
+#pragma unroll
+    for (int k = 0; k < A; ++k) cur[k] = v[k * WIDE_COLS];
+    for (; q + 2 * A <= n; q += A) {
+      float nxt[A];
+#pragma unroll
+      for (int k = 0; k < A; ++k) nxt[k] = v[(q + A + k) * WIDE_COLS];
+#pragma unroll
+      for (int k = 0; k < A; ++k) acc = __fadd_rn(acc, cur[k]);
+#pragma unroll
+      for (int k = 0; k < A; ++k) cur[k] = nxt[k];
+    }
+#pragma unroll
+    for (int k = 0; k < A; ++k) acc = __fadd_rn(acc, cur[k]);
+    q += A;
+  }
+  float tail[A];
+#pragma unroll
+  for (int k = 0; k < A; ++k)
+    if (q + k < n) tail[k] = v[(q + k) * WIDE_COLS];
+#pragma unroll
+  for (int k = 0; k < A; ++k)
+    if (q + k < n) acc = __fadd_rn(acc, tail[k]);
+  return acc;
+}
+
+// blockIdx.y: the attribute j; blockIdx.x: its cells [c0, c0 + cr);
+// blockIdx.z: the columns [col0, col0 + WIDE_COLS)
 __global__ void __launch_bounds__(THREADS)
 rule_stats_wide_kernel(float* __restrict__ stats, const int* __restrict__ seg,
                        const int* __restrict__ xbin,
                        const float* __restrict__ mom, int R, int m, int bins,
                        int C, int B, int cr) {
+  extern __shared__ __align__(16) float s_dyn[];  // wide_smem(cr) bytes
   __shared__ __align__(16) int s_seg[TILE];
   __shared__ __align__(16) int s_ent[TILE];     // xbin, then (rank, cell)
   __shared__ int s_sorted[TILE];                // tile instances, by cell
   __shared__ int s_wcnt[WARPS][CELLS];          // per warp and cell
   __shared__ int s_wsum[WARPS];
   __shared__ int s_start[CELLS], s_count[CELLS];
+  __shared__ int s_hit[CELLS];                  // instances of the cell seen
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j = blockIdx.y;
@@ -378,31 +432,83 @@ rule_stats_wide_kernel(float* __restrict__ stats, const int* __restrict__ seg,
   const int col0 = blockIdx.z * WIDE_COLS;
   const int ncols = min(WIDE_COLS, C - col0);
   const int* xj = xbin + j;
+  // the first of this block's columns in cell `local`'s row of stats
+  auto sums = [&](int local) {
+    const int cell = c0 + local, r = cell / bins, b = cell - r * bins;
+    return stats + (((size_t)r * m + j) * bins + b) * C + col0;
+  };
 
   if (B <= SMALL) {
-    wide_pairs<true>(stats, mom, m, j, bins, C, c0, ncell, col0, ncols, seg,
-                     xj, R, B, nullptr, nullptr, nullptr, 0);
+    // a batch this small: a thread per (cell, column) pair reads all the
+    // instances from device memory, in order; the loads do not wait on
+    // the adds, so they are all in flight at once
+    for (int p = tid; p < ncell * ncols; p += THREADS) {
+      const int local = p / ncols, col = p - local * ncols;
+      const int cell = c0 + local;
+      float* out = sums(local) + col;
+      float acc = *out;
+      for (int i = 0; i < B; ++i) {
+        const int s = seg[i], xb = xj[(size_t)i * m];
+        const bool hit = s >= 0 && s < R && xb >= 0 && xb < bins &&
+                         s * bins + xb == cell;
+        const float v = mom[(size_t)i * C + col0 + col];
+        if (hit) acc = __fadd_rn(acc, v);
+      }
+      *out = acc;
+    }
     return;
   }
+
+  float* s_vals = s_dyn;                        // [TILE][WIDE_COLS], sorted
+  float* s_acc = s_dyn + TILE * WIDE_COLS;      // [cr][WIDE_COLS]
+  const bool vec4 = C % 4 == 0;
+  const bool vec_mom = vec4 && reinterpret_cast<uintptr_t>(mom) % 16 == 0;
+  const bool vec_stats =
+      vec4 && reinterpret_cast<uintptr_t>(stats) % 16 == 0;
+  s_hit[tid] = 0;
   for (int base = 0; base < B; base += TILE) {
     const int n = min(TILE, B - base);
+    // 1. stage the ids (and, on the first tile, the old sums)
     stage_words(s_seg, seg + base, n);
     for (int i = tid; i < n; i += THREADS)
       cp_async4(&s_ent[i], xj + (size_t)(base + i) * m);
+    if (base == 0) stage_slab(s_acc, ncell, ncols, vec_stats, sums);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int k = lane; k < CELLS; k += 32) s_wcnt[warp][k] = 0;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
 
+    // 2. sort the tile by cell; then stage the values of the block's
+    // instances in that order, so that each cell's rows lie together
     const int2 list = sort_tile(n, R, bins, c0, cr, s_seg, s_ent, s_sorted,
                                 s_wcnt, s_wsum);
     s_start[tid] = list.x;
     s_count[tid] = list.y;
+    int total = 0;                      // the block's instances in the tile
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) total += s_wsum[w];
+    const float* tile = mom + (size_t)base * C + col0;
+    stage_slab(s_vals, total, ncols, vec_mom,
+               [&](int p) { return tile + (size_t)s_sorted[p] * C; });
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    wide_pairs<false>(stats, mom, m, j, bins, C, c0, ncell, col0, ncols, seg,
-                      xj, R, B, s_sorted, s_start, s_count, base);
+
+    // 3. each warp adds its cells' rows, a lane per column
+    for (int local = warp; local < ncell; local += WARPS) {
+      const int cnt = s_count[local];
+      if (cnt == 0) continue;
+      float* acc = s_acc + local * WIDE_COLS + lane;
+      *acc = walk_rows(*acc, s_vals + s_start[local] * WIDE_COLS + lane, cnt);
+      s_hit[local] = 1;
+    }
     if (base + TILE < B) __syncthreads();   // the buffers are staged again
   }
+  // each warp writes back the sums of its cells that instances hit (only
+  // it has read or written them since the staging)
+  for (int local = warp; local < ncell; local += WARPS)
+    if (s_hit[local] && lane < ncols)
+      sums(local)[lane] = s_acc[local * WIDE_COLS + lane];
 }
 
 template <int C>
@@ -418,16 +524,46 @@ void launch(float* stats, const int* seg, const int* xbin, const float* mom,
                                                      m, bins, B, cr);
 }
 
-void launch_wide(float* stats, const int* seg, const int* xbin,
-                 const float* mom, int R, int m, int bins, int C, int B,
-                 cudaStream_t stream) {
+// The staged path's dynamic shared memory limit, set once a device to its
+// largest value: cr is at most WARPS * WIDE_WARP_CELLS.  Two threads that
+// set it at once set the same value.
+constexpr int WIDE_DEVICES = 64;
+
+cudaError_t wide_smem_attribute() {
+  static std::atomic<bool> done[WIDE_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < WIDE_DEVICES && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(rule_stats_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wide_smem(WARPS * WIDE_WARP_CELLS));
+  if (err == cudaSuccess && dev < WIDE_DEVICES)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+cudaError_t launch_wide(float* stats, const int* seg, const int* xbin,
+                        const float* mom, int R, int m, int bins, int C,
+                        int B, cudaStream_t stream) {
+  // ranges of about WIDE_WARP_CELLS cells a warp, so that the walk is
+  // spread over many blocks
   const int per_attr = R * bins;
-  const int ranges = (per_attr + CELLS - 1) / CELLS;
+  const int ranges = (per_attr + WARPS * WIDE_WARP_CELLS - 1) /
+                     (WARPS * WIDE_WARP_CELLS);
   const int cr = (per_attr + ranges - 1) / ranges;
   const dim3 grid((unsigned)ranges, (unsigned)m,
                   (unsigned)((C + WIDE_COLS - 1) / WIDE_COLS));
-  rule_stats_wide_kernel<<<grid, THREADS, 0, stream>>>(stats, seg, xbin, mom,
-                                                       R, m, bins, C, B, cr);
+  size_t smem = 0;
+  if (B > SMALL) {
+    smem = wide_smem(cr);
+    const cudaError_t err = wide_smem_attribute();
+    if (err != cudaSuccess) return err;
+  }
+  rule_stats_wide_kernel<<<grid, THREADS, smem, stream>>>(
+      stats, seg, xbin, mom, R, m, bins, C, B, cr);
+  return cudaSuccess;
 }
 
 // The tenant form: F independent segment sums in one launch, out [F, S,
@@ -530,9 +666,11 @@ extern "C" int rule_stats_launch(void* stats, const void* seg,
     case 6: launch<6>(s, sg, xb, mo, R, m, bins, B, st); break;
     case 7: launch<7>(s, sg, xb, mo, R, m, bins, B, st); break;
     case 8: launch<8>(s, sg, xb, mo, R, m, bins, B, st); break;
-    default:
+    default: {
       if (C < 1 || C > MAX_WIDE) return (int)cudaErrorInvalidValue;
-      launch_wide(s, sg, xb, mo, R, m, bins, C, B, st);
+      const cudaError_t err = launch_wide(s, sg, xb, mo, R, m, bins, C, B, st);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -42,7 +42,8 @@ from repro_torch.kernels.rule_stats.ref import (batch_sum_tenant_with,
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 # the columns csrc/rule_stats.cu takes: up to MAX_MOMENTS a thread keeps a
 # cell's sums in registers; up to MAX_COLUMNS (its MAX_WIDE) its wide form
-# takes a thread per (cell, column), for CluStream's 2d-column CF scatter
+# takes a lane per column of a block's 32, for CluStream's 2d-column CF
+# scatter
 MAX_MOMENTS = 8
 MAX_COLUMNS = 4096
 

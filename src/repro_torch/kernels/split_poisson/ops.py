@@ -3,9 +3,11 @@ and ``w = poisson(k1, lam, (M, B))`` as float32, JAX's threefry2x32 draws
 bit for bit (``repro/ml/ensemble.py:154,178``).
 
 On a CUDA tensor it launches the hand-written kernel of
-``csrc/split_poisson.cu``: one thread per draw walks its own chain of
-round keys through Knuth's loop, so there is no loop on the host and the
-launch can be captured in a CUDA graph.  On a CPU tensor it runs the plain
+``csrc/split_poisson.cu``: a warp of each block works out the chain of
+round keys, which every draw shares, into a shared table a few rounds
+ahead, and a thread per draw runs Knuth's loop on it until the block's
+last draw is done, so there is no loop on the host and the launch can be
+captured in a CUDA graph.  On a CPU tensor it runs the plain
 version of ``ref.py``, whose loop reads its condition on the host.
 
 The kernel replaces no TPU kernel (the JAX package draws with XLA), so it

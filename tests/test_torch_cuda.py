@@ -487,22 +487,53 @@ def test_segment_sum_wide_columns_bit_identical(cuda, C, B):
     assert segment_sum.wide_launches == (2 if C > 8 else 0)
 
 
+def _wide_ids(rng, R, m, nb, B, kind):
+    """Rows and bins of a wide-form case: "random" rows in [-1, R + 1] and
+    bins in [-1, nb] (the ends dropped); "one" every row in one segment
+    (all in one chain); "blob" as a blob stream spreads a batch over
+    CluStream's K + 1 = R segments (13 % discarded into the last, 70 % of
+    the rest in 8 segments)."""
+    if kind == "random":
+        return (rng.randint(-1, R + 2, B),
+                rng.randint(-1, nb + 1, (B, m)))
+    if kind == "one":
+        seg = np.full(B, min(5, R - 1))
+    else:
+        seg = np.where(rng.uniform(size=B) < 0.13, R - 1, np.where(
+            rng.uniform(size=B) < 0.7, rng.randint(0, 8, B) * (R // 8),
+            rng.randint(0, R - 1, B)))
+    return seg, rng.randint(0, nb, (B, m))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,m,nb,C,B", [(9, 3, 4, 20, 1100), (300, 2, 1, 70, 64),
-                                        (5, 1, 3, 4096, 40)])
-def test_rule_stats_wide_form_at_other_shapes(cuda, R, m, nb, C, B):
+@pytest.mark.parametrize("R,m,nb,C,B,kind", [
+    pytest.param(9, 3, 4, 20, 1100, "random", id="9-3-4-20-1100"),
+    pytest.param(300, 2, 1, 70, 64, "random", id="300-2-1-70-64"),
+    pytest.param(5, 1, 3, 4096, 40, "random", id="5-1-3-4096-40"),
+    (257, 1, 1, 256, 512, "one"), (257, 1, 1, 256, 512, "blob"),
+    (257, 1, 1, 256, 2048, "blob"), (257, 1, 1, 256, 2048, "one"),
+    (101, 1, 1, 64, 512, "blob"), (101, 1, 1, 64, 512, "one"),
+    (101, 1, 1, 33, 512, "blob"), (257, 1, 1, 33, 1100, "random"),
+    (257, 1, 1, 256, 16, "blob"), (101, 1, 1, 64, 16, "one")])
+def test_rule_stats_wide_form_at_other_shapes(cuda, R, m, nb, C, B, kind):
     """The wide form with several attributes and bins, more than one tile
-    (1100 rows), more cells than a block takes (300), the small-batch path
-    and the most columns it takes; rows and bins out of range dropped.
-    One column more than that raises."""
-    rng = np.random.RandomState(R + C)
-    seg = _t(rng.randint(-1, R + 2, B).astype(np.int32)).to(cuda)
-    xbin = _t(rng.randint(-1, nb + 1, (B, m)).astype(np.int32)).to(cuda)
+    (1100 and 2048 rows), more cells than a block takes (257, 300), the
+    small-batch path (B <= 64) and the most columns it takes; CluStream's
+    CF scatter shapes (d128-K256: 257 segments of 256 columns; d32-K100:
+    101 of 64) with every row in one segment and with a blob stream's
+    skew; 33 columns, whose second slab is one column wide; rows and bins
+    out of range dropped.  From zeros, as CluStream calls it, and onto old
+    sums.  One column more than it takes raises."""
+    rng = np.random.RandomState(R + C + B)
+    seg, xbin = _wide_ids(rng, R, m, nb, B, kind)
+    seg = _t(seg.astype(np.int32)).to(cuda)
+    xbin = _t(xbin.astype(np.int32)).to(cuda)
     vals = _t((rng.randn(B, C) * 2).astype(np.float32)).to(cuda)
-    stats = _t(rng.randn(R, m, nb, C).astype(np.float32)).to(cuda)
-    out = segment_sum(stats.clone(), seg, xbin, vals)
-    want = rule_stats_scatter_ref(stats.clone(), seg, xbin, vals)
-    assert torch.equal(_bits(out), _bits(want))
+    old = _t(rng.randn(R, m, nb, C).astype(np.float32)).to(cuda)
+    for stats in (torch.zeros_like(old), old):
+        out = segment_sum(stats.clone(), seg, xbin, vals)
+        want = rule_stats_scatter_ref(stats.clone(), seg, xbin, vals)
+        assert torch.equal(_bits(out), _bits(want))
     wide = MAX_COLUMNS + 1
     with pytest.raises(ValueError, match="columns"):
         segment_sum(torch.zeros((R, m, nb, wide), device=cuda), seg, xbin,
@@ -886,29 +917,46 @@ def test_a_step_that_syncs_does_not_capture(cuda):
 # ------------------------------------------------- ensembles (slice 8)
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lam", ["bagging", "boosting"])
-def test_split_poisson_kernel_matches_plain(cuda, lam):
-    """JAX's split and Knuth Poisson draws at the ensembles' [10, 512]:
-    the kernel's key and weights equal the plain version's, bit for bit
-    (its logf is torch.log's on the card)."""
+@pytest.mark.parametrize("lam,M,B", [
+    pytest.param("bagging", 10, 512, id="bagging"),
+    pytest.param("boosting", 10, 512, id="boosting"),
+    ("9.99", 10, 512), ("mixed", 10, 512), ("9.99", 7, 1000),
+    ("bagging", 7, 1000), ("mixed", 64, 4096)])
+def test_split_poisson_kernel_matches_plain(cuda, lam, M, B):
+    """JAX's split and Knuth Poisson draws: the kernel's key and weights
+    equal the plain version's, bit for bit (its logf is torch.log's on the
+    card), and the input key is left as it was.  The ensembles' [10, 512]
+    at bagging's rate 1 and boosting's in [1, 3]; rates of 9.99, whose
+    draws run past 20 rounds, many times the table's chunk; per-element
+    rates in [0, 9.99) with zeros; M * B not a multiple of a block's draws
+    ([7, 1000]); and a launch of thousands of blocks ([64, 4096])."""
     from repro_torch.core.prng import PRNGKey
     from repro_torch.kernels.split_poisson.ops import split_poisson
     from repro_torch.kernels.split_poisson.ref import split_poisson_ref
-    M, B = 10, 512
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
     if lam == "bagging":
         rates = torch.ones((M, 1), device=cuda)
-    else:
-        g = torch.Generator(device=cuda)
-        g.manual_seed(3)
+    elif lam == "9.99":
+        rates = torch.full((M, 1), 9.99, device=cuda)
+    elif lam == "boosting":
         rates = 1.0 + 2.0 * torch.rand((M, B), generator=g, device=cuda)
+    else:
+        rates = 9.99 * torch.rand((M, B), generator=g, device=cuda)
+        rates[torch.rand((M, B), generator=g, device=cuda) < 0.2] = 0.0
     for seed in range(4):
         key = PRNGKey(seed, cuda)
+        before = key.clone()
         got_key, got_w = split_poisson(key, rates, (M, B))
         want_key, want_w = split_poisson_ref(key, rates, (M, B))
         torch.cuda.synchronize()
         _assert_bits_equal({"key": got_key, "w": got_w},
-                         {"key": want_key, "w": want_w})
+                           {"key": want_key, "w": want_w})
+        assert torch.equal(_bits(key), _bits(before))
         assert float(got_w.max()) >= 3
+        if lam == "mixed":
+            assert torch.equal(got_w[rates == 0],
+                               torch.zeros_like(got_w[rates == 0]))
     assert launches()["split_poisson"] == 4
 
 

@@ -33,6 +33,7 @@ from repro.kernels.tree_route.ops import tree_route as jax_tree_route
 from repro.kernels.tree_route.ref import tree_route_ref as jax_tree_route_ref
 from repro.kernels.vht_stats.ops import stats_update as jax_stats_update
 from repro.kernels.vht_stats.ref import stats_update_ref as jax_stats_ref
+from repro_torch.kernels.rule_stats.ref import rule_stats_scatter_ref
 from repro_torch.kernels.rule_stats.ops import (batch_sum, rule_moments,
                                                 rule_stats_update)
 from repro_torch.kernels.split_gain.ops import NEG, split_gain
@@ -374,6 +375,50 @@ def test_rule_stats_plain_bit_identical_to_jax_at_the_kernels_card_cases(
                             impl="segment").numpy()
     want = np.asarray(jax_rule_stats(stats, seg, xbin, mom, impl="segment"))
     np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+def _cf_case(K, C, B, kind, seed):
+    """CluStream's CF scatter: K + 1 segments (K the discard) of C columns,
+    B rows.  "one": every row in one segment; "blob": as a blob stream
+    spreads a batch (13 % discarded into segment K, 70 % of the rest in 8
+    segments); "random": ids in [0, K + 2], the two past K dropped."""
+    rng = np.random.RandomState(seed)
+    if kind == "one":
+        seg = np.full(B, 5)
+    elif kind == "blob":
+        seg = np.where(rng.uniform(size=B) < 0.13, K, np.where(
+            rng.uniform(size=B) < 0.7, rng.randint(0, 8, B) * (K // 8),
+            rng.randint(0, K, B)))
+    else:
+        seg = rng.randint(0, K + 3, B)
+    vals = (rng.randn(B, C) * 2).astype(np.float32)
+    old = rng.randn(K + 1, C).astype(np.float32)
+    return seg.astype(np.int32), vals, old
+
+
+@pytest.mark.parametrize("K,C,B,kind", [
+    (256, 256, 512, "one"), (256, 256, 512, "blob"), (256, 256, 2048, "blob"),
+    (256, 256, 16, "blob"), (100, 64, 512, "one"), (100, 64, 512, "blob"),
+    (100, 64, 16, "one"), (100, 33, 1100, "random"), (256, 33, 512, "random")])
+def test_cf_scatter_plain_bit_identical_to_jax_segment_sum(K, C, B, kind):
+    """The yardstick of the wide segment_sum on the card: the plain scatter
+    at CluStream's CF shapes (d128-K256: 257 segments of 256 columns;
+    d32-K100: 101 of 64), with every row in one segment and with a blob
+    stream's skew, more than one tile (2048), the small-batch size (16) and
+    33 columns, bit for bit ``jax.ops.segment_sum`` from zeros
+    (repro/ml/clustream.py:142) and XLA's scatter-add onto old sums."""
+    seg, vals, old = _cf_case(K, C, B, kind, seed=K + C + B)
+    xb = torch.zeros((B, 1), dtype=torch.int32)
+    for start, want in (
+            (np.zeros_like(old), jax.ops.segment_sum(
+                jnp.asarray(vals), jnp.asarray(seg), num_segments=K + 1)),
+            (old, jnp.asarray(old).at[jnp.asarray(seg)].add(
+                jnp.asarray(vals)))):
+        got = rule_stats_scatter_ref(_t(start).view(K + 1, 1, 1, C),
+                                     _t(seg), xb, _t(vals)).view(K + 1, C)
+        want = np.asarray(want)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
 
 
 @pytest.mark.parametrize("shape", [(20,), (256,), (510,), (512,), (1100,),

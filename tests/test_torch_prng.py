@@ -71,6 +71,34 @@ def test_poisson_draws_equal_jax(seed):
         _equal_bits(got, want)
 
 
+@pytest.mark.parametrize("rates,shape", [
+    ("9.99", (10, 512)), ("9.99", (7, 1000)), ("zero", (10, 512)),
+    ("mixed", (10, 512)), ("mixed", (7, 1000)), ("below 10", (10, 512))])
+def test_poisson_draws_equal_jax_at_the_kernels_card_rates(rates, shape):
+    """The yardstick of the split_poisson kernel on the card: rates of 9.99
+    (draws past 20 rounds), a rate of 0 (every draw 0), per-element rates
+    in [0, 9.99) with a fifth of them 0, and per-element rates just below
+    10; [7, 1000] is no multiple of a block's draws."""
+    rng = np.random.RandomState(len(rates) + shape[0])
+    if rates == "9.99":
+        lam = np.full((shape[0], 1), 9.99, np.float32)
+    elif rates == "zero":
+        lam = np.zeros((shape[0], 1), np.float32)
+    elif rates == "mixed":
+        lam = (rng.uniform(size=shape) * 9.99).astype(np.float32)
+        lam[rng.uniform(size=shape) < 0.2] = 0.0
+    else:
+        lam = rng.uniform(9.9, 10.0, shape).astype(np.float32)
+        lam = np.minimum(lam, np.float32(9.999))
+    for seed in (0, 5):
+        jk, tk = _key(seed)
+        want = jax.random.poisson(jk, jnp.asarray(lam), shape)
+        got = prng.poisson_knuth(tk, torch.from_numpy(lam), shape)
+        _equal_bits(got, want)
+        if rates == "zero":
+            assert not got.any()
+
+
 def test_poisson_refuses_rates_of_ten_and_more():
     key = prng.PRNGKey(0, CPU)
     with pytest.raises(ValueError, match="below 10"):

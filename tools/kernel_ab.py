@@ -6,9 +6,9 @@
 OTHER is the root of another checkout of the repository (for example an
 unpacked ``git archive`` of the parent commit).  Both checkouts'
 ``src/repro_torch/csrc/<name>.cu`` are built with the port's nvcc flags
-(by default all six: selective_scan, flash_attention, rule_stats,
-split_gain, vht_stats and tree_route; ``--kernels`` takes a subset), and
-both C entry points run on the same inputs:
+(by default all seven: selective_scan, flash_attention, rule_stats,
+split_gain, vht_stats, tree_route and split_poisson; ``--kernels`` takes a
+subset), and both C entry points run on the same inputs:
 
 - selective_scan at falcon_mamba_7b's prefill shape (B = 4, L = 2048,
   dI = 8192, N = 16, float32): the number of final-state elements that
@@ -21,10 +21,11 @@ both C entry points run on the same inputs:
   with seven in ten instances in the default rule's row; a batch in one
   cell) and its three segment_sum shapes (the per-rule sums [65, 1, 1, 3],
   the batch sum's levels [16, 1, 1, 4] and [1, 1, 1, 4]), and CluStream's
-  CF scatter x | x^2 at d128-K256 ([257, 1, 1, 256], B = 512, rows spread
-  as a blob stream spreads them, and all in one segment; skipped against
-  a checkout without the wide form): the elements that differ bit for bit
-  from each other and from the plain version;
+  CF scatter x | x^2 at d128-K256 ([257, 1, 1, 256]) and d32-K100 ([101,
+  1, 1, 64]), B = 512, rows spread as a blob stream spreads them, and all
+  in one segment (skipped against a checkout without the wide form): the
+  elements that differ bit for bit from each other and from the plain
+  version;
 - split_gain at the VHT main path's gathered tile [16, 1000, 8, 2] and
   full fallback [255, 1000, 8, 2]: the elements that differ bit for bit,
   and the NEG masks;
@@ -41,7 +42,11 @@ both C entry points run on the same inputs:
   fractional weights);
 - tree_route at B = 512, m = 1000: a random full tree of 255 nodes at
   M = 1 and M = 5, the seeded tree of 51 nodes, and a one-node tree at
-  B = 1, the launch floor: the leaf ids that differ.
+  B = 1, the launch floor: the leaf ids that differ;
+- split_poisson at the ensembles' [10, 512]: bagging's rate 1, boosting's
+  rates (1 + 2 x a uniform, per element) and rates of 9.99 (the longest
+  chains): the keys and weights that differ bit for bit from each other
+  and from the plain version, and the largest draw.
 
 Device ms per launch are taken in turns (other, this, this, other) with
 ``chip_smoke.device_ms``, beside ``F.scaled_dot_product_attention``'s for
@@ -63,7 +68,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 KERNELS = ("selective_scan", "flash_attention", "rule_stats",
-           "split_gain", "vht_stats", "tree_route")
+           "split_gain", "vht_stats", "tree_route", "split_poisson")
 
 
 def build(tag, csrc, kernels):
@@ -254,18 +259,18 @@ def rule_stats_cases(dev):
     cases["batch sum level 2"] = (
         torch.zeros((n2, 1, 1, 4), device=dev), ids2, xb[:n1],
         t((rng.randn(n1, 4) * 2).astype(np.float32)))
-    # CluStream's CF scatter x | x^2 at d128-K256 (the wide form): rows
-    # as a blob stream spreads them (13 % discarded into segment 256, 70 %
-    # of the rest in 8 segments), and all in one segment
-    K = 256
-    blob = np.where(rng.uniform(size=B) < 0.13, K, np.where(
-        rng.uniform(size=B) < 0.7, rng.randint(0, 8, B) * 31,
-        rng.randint(0, K, B)))
-    vals = t(rng.randn(B, 2 * 128).astype(np.float32))
-    for what, seg in (("CF scatter, blob", blob),
-                      ("CF scatter, one segment", np.full(B, 5))):
-        cases[what] = (torch.zeros((K + 1, 1, 1, 2 * 128), device=dev),
-                       t(seg.astype(np.int32)), xb, vals)
+    # CluStream's CF scatter x | x^2 at d128-K256 and d32-K100 (the wide
+    # form): rows as a blob stream spreads them (13 % discarded into
+    # segment K, 70 % of the rest in 8 segments), and all in one segment
+    for arm, d, K in (("", 128, 256), (" d32-K100", 32, 100)):
+        blob = np.where(rng.uniform(size=B) < 0.13, K, np.where(
+            rng.uniform(size=B) < 0.7, rng.randint(0, 8, B) * (K // 8 - 1),
+            rng.randint(0, K, B)))
+        vals = t(rng.randn(B, 2 * d).astype(np.float32))
+        for what, seg in ((f"CF scatter{arm}, blob", blob),
+                          (f"CF scatter{arm}, one segment", np.full(B, 5))):
+            cases[what] = (torch.zeros((K + 1, 1, 1, 2 * d), device=dev),
+                           t(seg.astype(np.int32)), xb, vals)
     return cases
 
 
@@ -516,10 +521,62 @@ def ab_tree_route(libs, stream, smi):
     return out
 
 
+def ab_split_poisson(libs, stream, smi):
+    import torch
+    from chip_smoke import ENS_M, B
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.split_poisson import ops as sp_ops
+    from repro_torch.kernels.split_poisson.ref import split_poisson_ref
+
+    dev = torch.device("cuda")
+    M = ENS_M
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = {"bagging, lam 1": torch.ones((M, 1), device=dev),
+             "boosting, lam in [1, 3)":
+                 1.0 + 2.0 * torch.rand((M, B), generator=g, device=dev),
+             "lam 9.99": torch.full((M, 1), 9.99, device=dev)}
+    key = PRNGKey(0, dev)
+    out = {}
+    for what, lam in cases.items():
+        runs, got = {}, {}
+        for tag in ("other", "this"):
+            fn = entry(libs[tag]["split_poisson"], "split_poisson_launch",
+                       sp_ops._ARGTYPES)
+            w = torch.empty((M, B), device=dev)
+            k_out = torch.empty(2, dtype=torch.uint32, device=dev)
+
+            def run(fn=fn, w=w, k_out=k_out):
+                _build.check(fn(key.data_ptr(), lam.data_ptr(), lam.shape[1],
+                                w.data_ptr(), k_out.data_ptr(), M * B, B,
+                                stream), "split_poisson")
+            run()
+            runs[tag], got[tag] = run, (k_out, w)
+        torch.cuda.synchronize()
+        want = split_poisson_ref(key, lam, (M, B))
+
+        def differing(a, b):
+            return (int((a[0].view(torch.int32) != b[0].view(torch.int32))
+                        .sum()) + bits_differing(a[1], b[1]))
+        e = {"shape": [M, B], "max_draw": int(want[1].max()),
+             "rounds": int((want[1] + 1).sum()),
+             "bits_differing": differing(got["other"], got["this"]),
+             "bits_differing_vs_plain": {t: differing(got[t], want)
+                                         for t in got},
+             "elements": M * B + 2, "ms": in_turns(runs)}
+        out[what] = e
+        print(f"split_poisson {what} [{M},{B}] (largest draw "
+              f"{e['max_draw']}): bits differing {e['bits_differing']} of "
+              f"{e['elements']}, vs plain {e['bits_differing_vs_plain']}; "
+              f"device ms other {e['ms']['other']}, this {e['ms']['this']} "
+              f"on {smi}", flush=True)
+    return out
+
+
 AB = {"selective_scan": ab_selective_scan,
       "flash_attention": ab_flash_attention, "rule_stats": ab_rule_stats,
       "split_gain": ab_split_gain, "vht_stats": ab_vht_stats,
-      "tree_route": ab_tree_route}
+      "tree_route": ab_tree_route, "split_poisson": ab_split_poisson}
 
 
 def main():
